@@ -1,6 +1,6 @@
-"""cpprcoder_tpu — a TPU-native lossless compression codec framework.
+"""cpprcoder_tpu — a lossless compression codec framework on accelerators.
 
-Brand-new JAX/XLA/Pallas implementation of the capabilities of the reference
+Brand-new JAX/XLA implementation, with CUDA kernels for the GPU, of the capabilities of the reference
 C++ codec suite (taqu/cpprcoder): static & adaptive byte-wise range coders,
 interleaved rANS, canonical Huffman, BWT/MTF block-sort transform, ASE, and
 an LZ4-format LZ77 compressor — re-designed around K-lane interleaved coder

@@ -108,7 +108,7 @@ def main(argv=None):
     if "--cpu" in argv:
         # Ratios are measurement-independent and containers are
         # backend-identical (tests/test_registry.py), so the table can be
-        # built on CPU JAX without occupying the TPU.
+        # built on CPU JAX without occupying the accelerator.
         import jax
 
         jax.config.update("jax_platforms", "cpu")

@@ -19,7 +19,7 @@ def main(argv=None):
 
     pc = sub.add_parser("compress")
     pc.add_argument("-c", "--codec", default="rans")
-    pc.add_argument("--backend", default=None, choices=[None, "jax", "ref", "pallas", "native"])
+    pc.add_argument("--backend", default=None, choices=[None, "jax", "ref", "native"])
     pc.add_argument("--stages", nargs="*", default=None,
                     help="pipeline stages (overrides --codec)")
     pc.add_argument("infile")
@@ -27,7 +27,7 @@ def main(argv=None):
 
     pd = sub.add_parser("decompress")
     pd.add_argument("-c", "--codec", default="rans")
-    pd.add_argument("--backend", default=None, choices=[None, "jax", "ref", "pallas", "native"])
+    pd.add_argument("--backend", default=None, choices=[None, "jax", "ref", "native"])
     pd.add_argument("--stages", action="store_true",
                     help="input is a CT-PIPE container")
     pd.add_argument("infile")

@@ -21,6 +21,7 @@ Codec ids (stable, used by CT-PIPE containers):
 
 from __future__ import annotations
 
+import threading
 from typing import Callable
 
 _REGISTRY: dict[str, "Codec"] = {}
@@ -28,12 +29,19 @@ _BY_ID: dict[int, "Codec"] = {}
 
 
 class Codec:
+    """encode_many/decode_many: optional batch forms that code several
+    independent containers in one dispatch (same output as one call each)."""
+
     def __init__(self, name: str, codec_id: int,
-                 encode: Callable, decode: Callable):
+                 encode: Callable, decode: Callable,
+                 encode_many: Callable | None = None,
+                 decode_many: Callable | None = None):
         self.name = name
         self.codec_id = codec_id
         self._encode = encode
         self._decode = decode
+        self._encode_many = encode_many
+        self._decode_many = decode_many
 
     def encode(self, data, **opts) -> bytes:
         blob = self._encode(data, **opts)
@@ -46,9 +54,27 @@ class Codec:
     def decode(self, blob, **opts) -> bytes:
         return self._decode(blob, **opts)
 
+    def encode_many(self, chunks, **opts) -> list[bytes]:
+        if self._encode_many is None:
+            return [self.encode(c, **opts) for c in chunks]
+        blobs = self._encode_many(chunks, **opts)
+        from cpprcoder_tpu import debug
 
-def register(name: str, codec_id: int, encode: Callable, decode: Callable) -> Codec:
-    c = Codec(name, codec_id, encode, decode)
+        if debug.shadow_enabled():
+            for c, b in zip(chunks, blobs):
+                debug.check_roundtrip(self, c, b, opts)
+        return blobs
+
+    def decode_many(self, blobs, **opts) -> list[bytes]:
+        if self._decode_many is None:
+            return [self.decode(b, **opts) for b in blobs]
+        return self._decode_many(blobs, **opts)
+
+
+def register(name: str, codec_id: int, encode: Callable, decode: Callable,
+             encode_many: Callable | None = None,
+             decode_many: Callable | None = None) -> Codec:
+    c = Codec(name, codec_id, encode, decode, encode_many, decode_many)
     _REGISTRY[name] = c
     _BY_ID[codec_id] = c
     return c
@@ -80,13 +106,22 @@ def decompress(blob, codec: str = "rans", **opts) -> bytes:
 
 
 _LOADED = False
+_LOAD_LOCK = threading.RLock()
 
 
 def _ensure_loaded():
+    """Import every codec module once; safe when several threads make their
+    first codec call at the same time."""
     global _LOADED
     if _LOADED:
         return
-    _LOADED = True
+    with _LOAD_LOCK:
+        if not _LOADED:
+            _import_codecs()
+            _LOADED = True
+
+
+def _import_codecs():
     # import for registration side effects
     from cpprcoder_tpu.codecs import (  # noqa: F401
         static_range,

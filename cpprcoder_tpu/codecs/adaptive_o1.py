@@ -1,5 +1,5 @@
 """CT-RC3 order-1 blended adaptive range coder (beyond the reference:
-context modeling is the TPU-era answer to the reference's converged order-0
+context modeling is the lane-parallel answer to the reference's converged order-0
 coder — 15-25% better ratios on the Canterbury corpus)."""
 
 from __future__ import annotations

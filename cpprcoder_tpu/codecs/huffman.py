@@ -10,10 +10,6 @@ from cpprcoder_tpu.reference import huffman_ref
 
 
 def encode(data, backend: str | None = None, lanes: int | None = None) -> bytes:
-    if backend == "pallas":
-        from cpprcoder_tpu.ops import huffman_pallas
-
-        return huffman_pallas.huffman_encode_pallas(data, lanes=lanes)
     from cpprcoder_tpu.ops import huffman_ops
     fn = pick_backend(backend, huffman_ops.huffman_encode_jax,
                       huffman_ref.huffman_encode)
@@ -21,10 +17,6 @@ def encode(data, backend: str | None = None, lanes: int | None = None) -> bytes:
 
 
 def decode(blob, backend: str | None = None) -> bytes:
-    if backend == "pallas":
-        from cpprcoder_tpu.ops import huffman_pallas
-
-        return huffman_pallas.huffman_decode_pallas(blob)
     from cpprcoder_tpu.ops import huffman_ops
     fn = pick_backend(backend, huffman_ops.huffman_decode_jax,
                       huffman_ref.huffman_decode)

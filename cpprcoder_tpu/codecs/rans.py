@@ -9,20 +9,12 @@ from cpprcoder_tpu.reference import rans_ref
 
 
 def encode(data, backend: str | None = None, lanes: int | None = None) -> bytes:
-    if backend == "pallas":
-        from cpprcoder_tpu.ops import rans_pallas
-
-        return rans_pallas.rans_encode_pallas(data, lanes=lanes)
     from cpprcoder_tpu.ops import rans_ops
     fn = pick_backend(backend, rans_ops.rans_encode_jax, rans_ref.rans_encode)
     return fn(data, lanes=lanes)
 
 
 def decode(blob, backend: str | None = None) -> bytes:
-    if backend == "pallas":
-        from cpprcoder_tpu.ops import rans_pallas
-
-        return rans_pallas.rans_decode_pallas(blob)
     from cpprcoder_tpu.ops import rans_ops
     fn = pick_backend(backend, rans_ops.rans_decode_jax, rans_ref.rans_decode)
     return fn(blob)

@@ -2,10 +2,10 @@
 
 The throughput flagship: same capability as CT-RC2 (reference parity:
 AdaptiveRangeEncoder/Decoder + AdaptiveFrequencyTable, cpprcoder.h:256-940)
-re-designed for division-free, gather-free TPU execution — a power-of-two
+re-designed for division-free, lane-parallel execution — a power-of-two
 quantized model re-derived per K-symbol window (models/qmodel.py). Format:
-reference/rcq_ref.py. Backends: "jax" (XLA scan), "pallas" (TPU kernel),
-"ref" (host oracle); all produce byte-identical containers.
+reference/rcq_ref.py. Routes: "jax" (XLA scan), "ref" (host oracle); both
+produce byte-identical containers.
 """
 
 from __future__ import annotations
@@ -17,11 +17,6 @@ from cpprcoder_tpu.reference import rcq_ref
 
 def encode(data, backend: str | None = None, lanes: int | None = None,
            inc: int | None = None, climit_log2: int | None = None) -> bytes:
-    if backend == "pallas":
-        from cpprcoder_tpu.ops import rcq_pallas
-
-        return rcq_pallas.rcq_encode_pallas(
-            data, lanes=lanes, inc=inc, climit_log2=climit_log2)
     from cpprcoder_tpu.ops import rcq_ops
 
     fn = pick_backend(backend, rcq_ops.rcq_encode_jax, rcq_ref.rcq_encode)
@@ -29,10 +24,6 @@ def encode(data, backend: str | None = None, lanes: int | None = None,
 
 
 def decode(blob, backend: str | None = None) -> bytes:
-    if backend == "pallas":
-        from cpprcoder_tpu.ops import rcq_pallas
-
-        return rcq_pallas.rcq_decode_pallas(blob)
     from cpprcoder_tpu.ops import rcq_ops
 
     fn = pick_backend(backend, rcq_ops.rcq_decode_jax, rcq_ref.rcq_decode)

@@ -6,50 +6,74 @@ model (models/qmodel.py) conditioned on an order-1 context — the top
 CHUNKED lane layout so the context is the true preceding byte. This is a
 capability the reference does not have (its AdaptiveFrequencyTable is
 order-0, cpprcoder.h:256-298); CT-RCX beats the reference adaptive coder's
-ratio on every Canterbury file (bench/rcx_sim.py sweep, BENCH_DETAILS).
-Format: reference/rcx_ref.py. Backends: "jax" (XLA scan), "pallas" (TPU
-kernel), "ref" (host oracle); all produce byte-identical containers.
+ratio on every Canterbury file.
+Format: reference/rcx_ref.py. Routes (codecs/base.py): the CUDA kernels on
+a GPU (ops/rcx_cuda.py), "jax" (XLA scan), "ref" (host oracle); all
+produce byte-identical containers.
 """
 
 from __future__ import annotations
 
 from cpprcoder_tpu.codecs import register
 from cpprcoder_tpu.codecs.base import pick_backend
+from cpprcoder_tpu.core.bytesutil import as_u8
+from cpprcoder_tpu.models.cxmodel import rcx_params
 from cpprcoder_tpu.reference import rcx_ref
 
 
-def encode(data, backend: str | None = None, lanes: int | None = None,
-           inc: int | None = None, climit_log2: int | None = None,
-           cbits: int | None = None, mode: str = "balanced",
-           wlog: int | None = None) -> bytes:
+def _params(n: int, lanes=None, inc=None, climit_log2=None, cbits=None,
+            mode: str = "balanced", wlog=None) -> dict:
     if mode != "balanced" and lanes is None and cbits is None:
-        from cpprcoder_tpu.models.cxmodel import rcx_params
-
-        lanes, _, _, cbits = rcx_params(len(data), mode=mode)
+        lanes, _, _, cbits = rcx_params(n, mode=mode)
         if wlog is None:
             wlog = 0          # ratio preset: per-step requant (best ratio)
-    if backend == "pallas":
-        from cpprcoder_tpu.ops import rcx_pallas
+    return dict(lanes=lanes, inc=inc, climit_log2=climit_log2, cbits=cbits,
+                wlog=wlog)
 
-        return rcx_pallas.rcx_encode_pallas(
-            data, lanes=lanes, inc=inc, climit_log2=climit_log2,
-            cbits=cbits, wlog=wlog)
-    from cpprcoder_tpu.ops import rcx_ops
 
-    fn = pick_backend(backend, rcx_ops.rcx_encode_jax, rcx_ref.rcx_encode)
-    return fn(data, lanes=lanes, inc=inc, climit_log2=climit_log2,
-              cbits=cbits, wlog=wlog)
+def _each(fn):
+    return lambda items, params: [fn(x, **p) for x, p in zip(items, params)]
+
+
+def _each_blob(fn):
+    return lambda blobs: [fn(b) for b in blobs]
+
+
+def encode_many(chunks, backend: str | None = None, **opts) -> list[bytes]:
+    """One container per chunk; on the kernel route one launch per group
+    of chunks with equal parameters (one thread block per container)."""
+    from cpprcoder_tpu.ops import rcx_cuda, rcx_ops
+
+    xs = [as_u8(c) for c in chunks]
+    params = [_params(len(x), **opts) for x in xs]
+    shapes = [rcx_params(len(x), p["lanes"], p["inc"], p["cbits"])
+              for x, p in zip(xs, params)]
+    fn = pick_backend(backend, _each(rcx_ops.rcx_encode_jax),
+                      _each(rcx_ref.rcx_encode),
+                      kernel_fn=rcx_cuda.encode_many,
+                      kernel_takes=all(rcx_cuda.takes(s[0], s[3])
+                                       for s in shapes))
+    return fn(xs, params)
+
+
+def decode_many(blobs, backend: str | None = None) -> list[bytes]:
+    from cpprcoder_tpu.ops import rcx_cuda, rcx_ops
+
+    fn = pick_backend(backend, _each_blob(rcx_ops.rcx_decode_jax),
+                      _each_blob(rcx_ref.rcx_decode),
+                      kernel_fn=rcx_cuda.decode_many,
+                      kernel_takes=all(rcx_cuda.takes(*rcx_cuda.header_shape(b))
+                                       for b in blobs))
+    return fn(list(blobs))
+
+
+def encode(data, backend: str | None = None, **opts) -> bytes:
+    return encode_many([data], backend, **opts)[0]
 
 
 def decode(blob, backend: str | None = None) -> bytes:
-    if backend == "pallas":
-        from cpprcoder_tpu.ops import rcx_pallas
-
-        return rcx_pallas.rcx_decode_pallas(blob)
-    from cpprcoder_tpu.ops import rcx_ops
-
-    fn = pick_backend(backend, rcx_ops.rcx_decode_jax, rcx_ref.rcx_decode)
-    return fn(blob)
+    return decode_many([blob], backend)[0]
 
 
-CODEC = register("rcx", 15, encode, decode)
+CODEC = register("rcx", 15, encode, decode, encode_many=encode_many,
+                 decode_many=decode_many)

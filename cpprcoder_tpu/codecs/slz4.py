@@ -15,7 +15,8 @@ def encode(data, backend: str | None = None, seg_log2: int = 17,
         return native.slz4_encode(data, seg_log2=seg_log2, lazy=lazy)
     from cpprcoder_tpu.ops import lz_ops
     fn = pick_backend(backend, lz_ops.slz4_encode_jax, slz4_ref.slz4_encode)
-    return fn(data, seg_log2=seg_log2, lazy=lazy)
+    # one parse on every device route, so their containers are identical
+    return fn(data, seg_log2=seg_log2, lazy=lazy, parse="v2")
 
 
 def decode(blob, backend: str | None = None) -> bytes:

@@ -25,9 +25,8 @@ def stream_encode(data, codec: str = "rans", sb_log2: int = 25,
     x = as_u8(data)
     c = get_codec(codec)
     sb = 1 << sb_log2
-    blobs = []
-    for i in range(0, max(len(x), 1), sb):
-        blobs.append(c.encode(x[i:i + sb], backend=backend, **opts))
+    blobs = c.encode_many([x[i:i + sb] for i in range(0, max(len(x), 1), sb)],
+                          backend=backend, **opts)
     w = ByteWriter().u8(c.codec_id).u8(sb_log2).u32(len(blobs))
     w.u32s([len(b) for b in blobs])
     for b in blobs:
@@ -41,10 +40,8 @@ def stream_decode(blob, backend=None, **opts) -> bytes:
     r.u8()
     n_sb = r.u32()
     sizes = r.u32s(n_sb)
-    parts = []
-    for i in range(n_sb):
-        parts.append(c.decode(r.raw(int(sizes[i])).tobytes(), backend=backend))
-    return b"".join(parts)
+    blobs = [r.raw(int(s)).tobytes() for s in sizes]
+    return b"".join(c.decode_many(blobs, backend=backend))
 
 
 CODEC = register("stream", 10, stream_encode, stream_decode)
@@ -53,7 +50,7 @@ CODEC = register("stream", 10, stream_encode, stream_decode)
 # ------------------------------------------------------- resume / seek
 
 class SuperblockEncoder:
-    """Incremental CT-SB encoder with checkpoint/resume — the TPU-side
+    """Incremental CT-SB encoder with checkpoint/resume — the device-side
     equivalent of the reference's resumable coder protocol
     (Result{Pending, requestSize}, cpprcoder.h:112-123): feed bytes in any
     granularity, snapshot progress at superblock boundaries, resume after a

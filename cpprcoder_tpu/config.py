@@ -4,7 +4,7 @@ The reference hard-codes its parallelism (8 interleaved rANS states,
 cppans.h:585-597; one stream for the range coders). Here the lane count K is
 a first-class knob: small inputs use few lanes (keeping per-lane overhead
 negligible for compression ratio), large inputs scale to thousands of lanes
-(keeping the TPU's vector units full).
+(keeping the device's parallel units busy).
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ def pick_lanes(n: int, target_chunk: int = 2048, max_log2: int = MAX_LANES_LOG2)
 
     Aim for ~target_chunk symbols per lane so per-lane overhead (flush + size
     table entry, ~4-5 bytes) stays below ~0.25% of the compressed size, while
-    large inputs saturate the VPU with thousands of lanes.
+    large inputs run thousands of lanes in parallel.
     """
     if n <= 0:
         return 1

@@ -1,7 +1,7 @@
 """Byte-buffer helpers shared by the host-side container layer.
 
 The reference's stream layer (IStream/MemoryStream, cpprcoder.h:130-248) is a
-byte-at-a-time CRTP abstraction; on the TPU side we work with whole u8 arrays
+byte-at-a-time CRTP abstraction; on the device side we work with whole u8 arrays
 and explicit offsets, so the host only needs tiny header pack/unpack helpers.
 """
 

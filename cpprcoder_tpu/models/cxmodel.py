@@ -7,7 +7,7 @@ symbol is one window step earlier in the SAME lane — available to encoder
 and decoder alike; first step uses context 0). This is an order-1 model
 family the reference does not have at all (its AdaptiveFrequencyTable is
 order-0, cpprcoder.h:256-298); simulated on Canterbury it beats the
-reference adaptive coder's ratio on every file (bench/rcx_sim.py).
+reference adaptive coder's ratio on every file.
 
 Counts live in C[2^CBITS, 256]; each context row updates per K-symbol
 window and rescales independently:
@@ -55,10 +55,12 @@ from cpprcoder_tpu.models.qmodel import (  # noqa: F401  (shared constants)
 WLOG_DEFAULT = 2
 RESCALE_ROUNDS = 3
 
-# context-width policy (bench/rcx_sim.py sweep, 2026-08): wider contexts
-# always compress better but cost O(2^CBITS * 256) MACs per symbol in the
-# one-hot/MXU kernel algebra; these cutoffs keep every file comfortably
-# below the reference adaptive ratio while staying MXU-cheap on big files.
+# context-width policy (numpy ratio sweep over Canterbury): wider contexts
+# always compress better but cost O(2^CBITS * 256) work per symbol in the
+# one-hot kernel algebra of an earlier accelerator's kernels; these cutoffs
+# keep every file below the reference adaptive ratio. This policy, the lane
+# target (models/qmodel.rcq_params) and WLOG_DEFAULT were tuned to that
+# kernel cost and are to be re-decided by measurement on the GPU (ROADMAP).
 CBITS_SMALL, CBITS_MID, CBITS_BIG = 6, 5, 4
 N_SMALL, N_MID = 1 << 16, 1 << 18
 

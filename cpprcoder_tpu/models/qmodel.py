@@ -1,9 +1,8 @@
 """Quantized windowed adaptive model (CT-RCQ).
 
 The reference's AdaptiveFrequencyTable (cpprcoder.h:256-298, 1085-1261)
-updates per symbol and divides by a running total. On TPU both are hostile:
-per-symbol updates serialize lanes, and u32 division is expensive inside
-kernels. CT-RCQ keeps adaptive COUNTS C[256] (incremented per K-symbol
+updates per symbol and divides by a running total. For K parallel lanes both are hostile:
+per-symbol updates serialize lanes, and per-symbol division is expensive. CT-RCQ keeps adaptive COUNTS C[256] (incremented per K-symbol
 window, halved at a threshold = sliding-window memory) but CODES against a
 quantized table Q[256] with Sum(Q) = 2^QBITS exactly, re-derived from C at
 every window boundary. Power-of-two totals make the coder division-free:
@@ -39,9 +38,10 @@ def rcq_params(n: int, lanes: int | None = None,
     """(k, inc, climit_log2) for an n-byte input.
 
     The lane count trades the shared-model window size (= K symbols; smaller
-    windows adapt faster, ratio_sim.py quantifies) against parallel width.
-    The XLA/Pallas backends are latency-bound per window step, so K well
-    below the 8*128 VPU shape is still fast; default keeps windows modest."""
+    windows adapt faster) against parallel width. The XLA backends are
+    latency-bound per window step, so modest K is still fast; the default
+    keeps windows modest. The policy predates the GPU route and is to be
+    re-decided by measurement on the card (ROADMAP)."""
     if lanes is None:
         k = 32
         while k * 2 <= max(1, n // 256) and k < 2048:

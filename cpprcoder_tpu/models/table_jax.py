@@ -17,10 +17,10 @@ U32 = jnp.uint32
 def histogram_masked(x_flat, n, chunk: int = 1 << 15):
     """256-bin histogram of x_flat (u8, padded) counting only the first n.
 
-    Device equivalent of np.bincount(x[:n], minlength=256). Scatter-add is
-    ~9 ns/element on this TPU (73 ms for 8 Mi); chunked one-hot matmuls on
-    the MXU are ~10× faster (0/1 operands are bf16-exact and per-chunk
-    counts < 2^24 accumulate exactly in f32)."""
+    Device equivalent of np.bincount(x[:n], minlength=256), as chunked
+    one-hot matmuls (0/1 operands are exact at DEFAULT precision and
+    per-chunk counts < 2^24 accumulate exactly in f32; ops/lookup.py).
+    Whether this or a scatter-add is faster on the GPU is not measured."""
     import jax.lax as lax
 
     m = x_flat.shape[0]

@@ -1,7 +1,7 @@
 """JAX K-lane adaptive interleaved rANS: CT-ANS2 (see reference/ans2_ref.py
 for the format spec).
 
-TPU design: classic adaptive rANS is encode-hostile (model forward, coding
+Design: classic adaptive rANS is encode-hostile (model forward, coding
 backward). The deferred-summation model makes both directions batched:
 
   encode (one jit, no host round-trips):
@@ -10,7 +10,7 @@ backward). The deferred-summation model makes both directions batched:
             the doubling warmup windows (1,1,2,4,…,R/2 steps) are a small
             unrolled prefix, the R-step main windows one lax.scan
     pass B  per-position (f, c) via one one-hot matmul per window
-            (lax.map; Precision.HIGHEST — MXU default truncates to bf16)
+            (lax.map; Precision.HIGHEST — DEFAULT may round to TF32/bf16)
     pass C  the CT-ANS1 reverse interleaved coding scan, unchanged
 
   decode: outer loop over windows (rescale + renormalize the snapshot
@@ -77,7 +77,7 @@ def _window_model(counts, total, limit: int):
 def _fc_lookup(tbl_f32, syms_u8):
     iota = jnp.arange(256, dtype=I32)
     oh = (syms_u8.astype(I32)[:, None] == iota[None, :]).astype(F32)
-    # HIGHEST: the MXU's default f32 matmul truncates inputs to bf16
+    # HIGHEST: a DEFAULT-precision dot may round operands to TF32 or bf16
     return jnp.dot(oh, tbl_f32, preferred_element_type=F32,
                    precision=lax.Precision.HIGHEST)
 

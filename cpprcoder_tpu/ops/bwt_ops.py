@@ -1,6 +1,6 @@
 """JAX Burrows-Wheeler transform: CT-BWT1.
 
-TPU design (SURVEY.md §7 phase 4): the reference's multikey quicksort over
+Lane-parallel design (SURVEY.md §7 phase 4): the reference's multikey quicksort over
 rotation pointers (blksort.h:276-350, strictly sequential, O(depth) compares)
 becomes prefix-doubling rank sort — log2(B) rounds of batched
 `lax.sort(num_keys=2)` over [n_blocks, B], entirely parallel across blocks

@@ -6,9 +6,10 @@ followed by run_len identical run bytes). Per lane, events tile the lane's
 byte stream contiguously, lanes tile the payload in order, and the first
 emitted byte of every lane (the dummy) is dropped (FORMATS.md).
 
-Materialization is scatter-free (XLA TPU scatters serialize): every output
-byte position finds its owning event with one vectorized binary search over
-the event start offsets — the SURVEY.md §7 'ragged compaction' pattern.
+Materialization is scatter-free: every output byte position finds its
+owning event by sorting position records among event records (or, above the
+sort's capacity, one vectorized binary search over the event start offsets)
+— the SURVEY.md §7 'ragged compaction' pattern.
 """
 
 from __future__ import annotations
@@ -62,8 +63,7 @@ def _expand_sort(first, run_byte, pcnt, pstart, dropped, total, out_cap: int):
     """Shared sort-based expansion over FLAT event fields [M].
 
     Two SINGLE-u32-array sorts (key and payload packed into one word — a
-    tuple sort moves twice the bytes per pass, and this stage dominates
-    encode wall time):
+    tuple sort moves twice the bytes per pass):
 
       1. merge-sort event records (key pstart<<10 | byte9) with position
          records (key p<<10 | 1<<9): each position lands after its owning
@@ -117,7 +117,7 @@ def _expand_sort(first, run_byte, pcnt, pstart, dropped, total, out_cap: int):
 # "extract positions in p order" step (the second sort) is free: replaying
 # the recorded compare-exchange decisions BACKWARDS returns every record to
 # its pre-merge slot, carrying the assigned byte. ~20x fewer passes than
-# two sorts; this stage dominated encode wall time (VERDICT r2 weakness 3).
+# two sorts.
 
 def _bitonic_merge(keys):
     """Sort a bitonic (ascending-then-descending) power-of-2 u32 array.
@@ -193,13 +193,9 @@ def materialize(events, out_cap: int):
     """Build the concatenated payload (static size out_cap ≥ total).
 
     Returns (payload u8 [out_cap], lane_sizes i32 [K]). Expansion is the
-    two-sort _expand_sort: MEASURED faster on the chip than the
-    merge-based _expand_merge despite ~20x more compare-exchange passes —
-    the merge's tail stages reshape to last dims < 128, forcing a Mosaic
-    relayout per stage, while lax.sort is a native fused sort
-    (BENCH_DETAILS r3: kennedy encode 17 MB/s merged vs ~70 sorted).
-    _expand_merge is kept (tests/test_compaction.py) as the seed of a
-    future Pallas in-VMEM merge, where the layout problem disappears."""
+    two-sort _expand_sort; the merge-based _expand_merge is its tested
+    alternative (tests/test_compaction.py). Which is faster on the GPU is
+    not measured yet."""
     M = events.size
     if M + out_cap > (1 << 22):
         return _materialize_searchsorted(events, out_cap)
@@ -236,30 +232,29 @@ def lane_layout(events):
 
 # ----------------------------------------------------- transposed variants
 #
-# The Pallas encode kernels naturally produce events time-major ([E, K]);
-# these twins consume that layout directly, saving an 8-byte-per-symbol
-# device transpose. Record ORDER inside the sort is irrelevant (the sort
+# The GPU encode kernels produce events time-major ([E, K]); these twins
+# consume that layout directly, saving an 8-byte-per-symbol device
+# transpose. Record ORDER inside the sort is irrelevant (the sort
 # re-orders anyway) — only the pstart VALUES must reflect the lane-major
 # payload layout, which the column-wise cumsums below compute.
 
-CUMSUM_MXU_MAX_E = 4096
+CUMSUM_DOT_MAX_E = 4096
 
 
-def _cumsum_rows_mxu(cnt):
-    """Inclusive per-COLUMN cumsum of cnt [E, K] as one triangular MXU dot.
+def _cumsum_rows_dot(cnt):
+    """Inclusive per-COLUMN cumsum of cnt [E, K] as one triangular dot.
 
-    jnp.cumsum(axis=0) over [E≈1000, K≈2000] lowers to a slow major-axis
-    scan on TPU; tri @ cnt is one [E,E]@[E,K] matmul. Exact: cnt and all
-    partial sums stay < 2^24 (pstart capacity is 2^22), f32-representable;
-    HIGHEST precision keeps the MXU from truncating inputs to bf16.
+    tri @ cnt is one [E,E]@[E,K] matmul. Exact: cnt and all partial sums
+    stay < 2^24 (pstart capacity is 2^22), f32-representable; HIGHEST
+    precision keeps the dot in full f32 (no bf16 or TF32 operand rounding).
 
-    The [E,E] triangle is O(E^2) memory — above CUMSUM_MXU_MAX_E (16 M
-    entries = 64 MB f32) the dot would dominate or OOM (single-shot
-    encodes of tens of MB reach E~2^16), so fall back to jnp.cumsum: slower
-    per element but O(E*K), and such shapes are far off the hot bench path
-    (superblock framing keeps production E in the hundreds)."""
+    The [E,E] triangle is O(E^2) memory — above CUMSUM_DOT_MAX_E (16 M
+    entries = 64 MB f32) it would dominate or run out of memory
+    (single-shot encodes of tens of MB reach E~2^16), so fall back to
+    jnp.cumsum, which is O(E*K). Whether the dot or jnp.cumsum is faster
+    on the GPU is not measured yet."""
     E = cnt.shape[0]
-    if E > CUMSUM_MXU_MAX_E:
+    if E > CUMSUM_DOT_MAX_E:
         return jnp.cumsum(cnt.astype(I32), axis=0)
     tri = (jax.lax.broadcasted_iota(I32, (E, E), 0)
            >= jax.lax.broadcasted_iota(I32, (E, E), 1)).astype(jnp.float32)
@@ -280,7 +275,7 @@ def payload_layout_t(events_t, may_drop=True):
     chunk may still drop (codecs/resume.py)."""
     emit, _, _, run_len = event_fields(events_t)
     cnt = jnp.where(emit, 1 + run_len, 0).astype(I32)
-    cum_lane = _cumsum_rows_mxu(cnt)                # per-lane inclusive
+    cum_lane = _cumsum_rows_dot(cnt)                # per-lane inclusive
     prior = cum_lane - cnt
     first_emit = emit & (prior == 0)
     if isinstance(may_drop, bool):
@@ -290,7 +285,7 @@ def payload_layout_t(events_t, may_drop=True):
     dcnt = dropped.astype(I32)
     pcnt = cnt - dcnt
     # exclusive cumsum of pcnt = (inclusive cnt) - (inclusive dropped) - pcnt
-    pin_lane = cum_lane - _cumsum_rows_mxu(dcnt) - pcnt
+    pin_lane = cum_lane - _cumsum_rows_dot(dcnt) - pcnt
     lane_sizes = cum_lane[-1, :] - dropped.sum(axis=0, dtype=I32)
     lane_offsets = jnp.cumsum(lane_sizes) - lane_sizes
     pstart = pin_lane + lane_offsets[None, :]
@@ -301,14 +296,13 @@ def payload_layout_t(events_t, may_drop=True):
 # ------------------------------------------------- per-lane merge expansion
 #
 # The flat two-sort expansion pays two full lax.sort passes over
-# M + out_cap ≈ 3M u32 (~10 ms for a 1 MB input — 10x the encode kernel
-# itself, measured round 4). But per LANE the two record streams are each
+# M + out_cap ≈ 3M u32. But per LANE the two record streams are each
 # already sorted: event pin offsets are nondecreasing in time, positions
 # are an iota. Expansion per lane is therefore a bitonic MERGE — log2(R2)
 # roll-based compare-exchange stages along the MINOR axis of a [K, R2]
 # tile (R2 ≈ E + l2), plus a reversed swap-replay to return position
-# records to their slots. ~22 elementwise stages instead of ~2·log^2
-# sort stages, at layouts the TPU likes.
+# records to their slots: ~22 elementwise stages instead of ~2·log^2
+# sort stages.
 
 def _merge_stages(arr):
     """Sort a per-row bitonic (asc-then-desc) [K, R2] u32 array ascending.
@@ -382,30 +376,15 @@ def _expand_rows(first_T, run_T, pcnt_T, pin_T, dropped_T, lane_sizes,
     return back[:, R2 - l2:][:, ::-1].astype(jnp.uint8)
 
 
-def materialize_rows(events_t, l2: int, may_drop=True):
-    """Auto-dispatching rows materializer: the Pallas VMEM merge-expansion
-    kernel (ops/expand_pallas.py — ~9x the XLA path on chip, round 5) when
-    the platform and shapes allow, else the XLA path below. Same contract
-    as materialize_rows_t."""
-    from cpprcoder_tpu.ops import expand_pallas
-
-    if expand_pallas.usable(events_t.shape[0], l2):
-        return expand_pallas.materialize_rows_pallas(events_t, l2, may_drop)
-    return materialize_rows_t(events_t, l2, may_drop)
-
-
 def materialize_rows_t(events_t, l2: int, may_drop=True):
     """Padded per-lane payload rows for time-major [E, K] event grids.
 
     Returns (rows [K, l2] u8, lane_sizes [K]): row i holds lane i's payload
-    bytes 0..lane_sizes[i] (zero beyond). This is the device-resident
-    interchange layout — the decode kernels read exactly these rows (as
-    big-endian u32 words), and the container's flat lane-major payload is
-    row slicing (host-side np, or one device compaction for the wrappers).
-    Requires l2 >= max lane size."""
+    bytes 0..lane_sizes[i] (zero beyond); the container's flat lane-major
+    payload is row slicing. Requires l2 >= max lane size."""
     emit, first, run_byte, run_len = event_fields(events_t)
     cnt = jnp.where(emit, 1 + run_len, 0).astype(I32)
-    cum_lane = _cumsum_rows_mxu(cnt)
+    cum_lane = _cumsum_rows_dot(cnt)
     prior = cum_lane - cnt
     first_emit = emit & (prior == 0)
     if isinstance(may_drop, bool):
@@ -414,26 +393,17 @@ def materialize_rows_t(events_t, l2: int, may_drop=True):
         dropped = first_emit & may_drop[None, :]
     dcnt = dropped.astype(I32)
     pcnt = cnt - dcnt
-    pin_lane = cum_lane - _cumsum_rows_mxu(dcnt) - pcnt
+    pin_lane = cum_lane - _cumsum_rows_dot(dcnt) - pcnt
     lane_sizes = cum_lane[-1, :] - dropped.sum(axis=0, dtype=I32)
     rows = _expand_rows(first.T, run_byte.T, pcnt.T, pin_lane.T, dropped.T,
                         lane_sizes, l2)
     return rows, lane_sizes
 
 
-def rows_to_be_words(rows):
-    """[K, l2] u8 byte rows -> [K, l2//4] big-endian u32 word rows (the
-    decode kernels' input layout, same convention as rcq_ops._rows_fn)."""
-    r = rows.astype(jnp.uint32)
-    return ((r[:, 0::4] << 24) | (r[:, 1::4] << 16)
-            | (r[:, 2::4] << 8) | r[:, 3::4])
-
-
 def materialize_t(events_t, out_cap: int, may_drop=True):
     """materialize() twin for time-major [E, K] event grids.
 
-    Uses the two-sort expansion (see materialize() — measured faster than
-    the merge path on chip). Sort order is layout-independent; only the
+    Uses the two-sort expansion (see materialize()). Sort order is layout-independent; only the
     pstart VALUES encode the lane-major payload layout."""
     M = events_t.size
     if M + out_cap > (1 << 22):

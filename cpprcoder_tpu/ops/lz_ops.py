@@ -1,6 +1,6 @@
 """JAX SLZ4 (CT-LZ4) — parallel LZ77 over independent segments.
 
-TPU design (SURVEY.md §7 phase 5), replacing the reference's sequential
+Lane-parallel design (SURVEY.md §7 phase 5), replacing the reference's sequential
 single-probe hash scan (test/slz4.h:204-234,462-510):
 
   encode, all batched over [n_segments, S]:
@@ -394,10 +394,9 @@ def _resolve_fn(nseg: int, s: int, t_cap: int):
 
 @lru_cache(maxsize=16)
 def _serialize_fn_v2(nseg: int, s: int, t_cap: int, out_cap: int):
-    """Same output bytes as _serialize_fn, ownership reworked for TPU:
-    the per-output-byte searchsorted (18 binary-search gather rounds over
-    out_cap elements — ~190 ms for 1 MiB, the whole-path bottleneck) and
-    the per-byte field gathers are replaced by ONE scatter of the token
+    """Same output bytes as _serialize_fn, ownership reworked: the
+    per-output-byte searchsorted (18 binary-search gather rounds over
+    out_cap elements) and the per-byte field gathers are replaced by ONE scatter of the token
     records to their output start positions and ONE vectorized cummax that
     propagates (ordinal | 13-bit field chunk) packs down the byte axis —
     the token ordinal rides the high bits, so the running max is always
@@ -503,13 +502,13 @@ def _serialize_fn_v2(nseg: int, s: int, t_cap: int, out_cap: int):
 # ------------------------------------------------------------- parse v2
 # Sort-carry suffix-neighborhood parse (spec: reference/slz4_ref.py
 # parse_segment_v2; containers byte-identical BY CONSTRUCTION — both
-# backends compare the same u32 hash chains).  The per-pass costs that
-# killed v1 on TPU (52 gathers in the LCP ladder, 34 more in the
-# pointer-doubling trajectory; ~900 ms for 1 MiB) are replaced by:
+# backends compare the same u32 hash chains).  v1's gather-heavy passes
+# (52 gathers in the LCP ladder, 34 more in the pointer-doubling
+# trajectory) are replaced by:
 #   - ONE 24-operand sort (keys: flag, 16-byte prefix, pos; carried:
 #     words to 32 B + hash ladder) and elementwise adjacent-rank compares;
 #   - a block-composed greedy walk: per-128-block jump tables built with
-#     log2(B) one-hot MXU contractions (bf16 limb-exact), one lax.scan
+#     log2(B) one-hot contractions (byte-limb exact), one lax.scan
 #     chain across blocks, and an orbit-doubling membership pass;
 #   - match clamp via cummax/reverse-cummin propagation (2 gathers total).
 
@@ -630,8 +629,8 @@ def _match_table_v2(blocks, lens):
 
 
 def _ohg(vals, idx, B):
-    """Gather vals[m, idx[m, t]] via one-hot MXU contraction; exact for
-    vals < 2^18 (three 6-bit bf16 limbs)."""
+    """Gather vals[m, idx[m, t]] via one-hot contraction; exact for
+    vals < 2^18 (three 6-bit limbs, exact in bf16; ops/lookup.py)."""
     oh = (idx[:, :, None] == jnp.arange(B, dtype=I32)[None, None, :])
     limbs = jnp.stack([vals & 63, (vals >> 6) & 63, vals >> 12],
                       axis=-1).astype(jnp.bfloat16)
@@ -744,7 +743,7 @@ def _parse_fn_v2(nseg: int, s: int, t_cap: int, lazy: bool = True):
 
 
 # ------------------------------------------------------------- decode v2
-# Same two passes as v1, reworked around the same TPU primitives as the
+# Same two passes as v1, reworked around the same primitives as the
 # v2 encode: token discovery rides _greedy_membership (block-composed
 # one-hot jump tables + one scan) instead of a t_cap pointer-doubling
 # orbit, compaction carries the token fields through ONE sort, output-byte

@@ -1,7 +1,7 @@
 """JAX order-1 blended adaptive range coder: CT-RC3.
 
 All model access is one-hot algebra (no gathers, no scatters):
-  row extraction   M1 = onehot(ctx) @ T1          (f32 MXU matmul, exact —
+  row extraction   M1 = onehot(ctx) @ T1          (f32 matmul, exact —
                                                    all counts < 2^24)
   (f, c) pick      masked reduces over M1 / row-cumsum
   model update     T1 += inc · onehot(ctx)ᵀ @ onehot(sym)
@@ -64,9 +64,9 @@ def _model_step(t1, rowtot, t0, tot0, ctx, syms, active, inc, limit1, limit0,
       - the extraction matmul runs at DEFAULT precision on byte-split
         pieces: C1 < 2^14 (rowtot < 2^11 + k·inc ≤ 2^11 + 2^13, see
         pick_inc) is packed as [C1 >> 8, C1 & 255]; one-hot × piece < 2^8
-        products are bf16-exact and the MXU accumulates in f32 — one
-        [K,256]×[256,516] default-precision pass instead of bf16x3
-        (Precision.HIGHEST) on [K,256]×[256,256], ~3× fewer MXU cycles."""
+        operands are exact in TF32 and bf16 and the dot accumulates in
+        f32 (exactness argument: ops/lookup.py) — one [K,256]×[256,514]
+        default-precision pass instead of a HIGHEST one."""
     resc1 = rowtot >= U32(limit1)
     t1 = jnp.where(resc1[:, None], (t1 >> 1) | 1, t1)
     rowtot = jnp.where(resc1, t1.sum(axis=1), rowtot)
@@ -94,7 +94,7 @@ def _model_update(t1, rowtot, t0, tot0, ctx, syms, active, inc, oh_ctx=None):
         oh_ctx = (ctx[:, None] == _iota()[None, :]).astype(F32)
     oh_ctx = oh_ctx * active[:, None]
     oh_sym = ((syms[:, None] == _iota()[None, :]) & active[:, None]).astype(F32)
-    upd = jnp.dot(oh_ctx.T, oh_sym, preferred_element_type=F32)  # 0/1 operands are bf16-exact; f32 accumulation is exact below 2^24
+    upd = jnp.dot(oh_ctx.T, oh_sym, preferred_element_type=F32)  # 0/1 operands: exact at DEFAULT precision (ops/lookup.py)
     t1 = t1 + upd.astype(U32) * U32(inc)
     rowtot = rowtot + oh_ctx.sum(axis=0).astype(U32) * U32(inc)
     t0 = t0 + oh_sym.sum(axis=0).astype(U32) * U32(inc)

@@ -1,6 +1,6 @@
 """JAX K-lane range coder: CT-RC1 (static) and CT-RC2 (adaptive).
 
-TPU design (SURVEY.md §7 phases 1-2): the per-byte sequential loop of the
+Lane-parallel design (SURVEY.md §7 phases 1-2): the per-byte sequential loop of the
 reference (cpprcoder.h:400-436, 697-742) becomes a lax.scan over `steps`
 time-steps whose carry is the vector state of K interleaved lanes. Step t
 processes input slice x[tK : tK+K] (round-robin lanes → pure reshape).
@@ -63,7 +63,7 @@ def _static_encode_fn(steps: int, k: int):
         freqs = normalize_freqs_jnp(counts, n, STATIC_TOTAL_BITS)
         cums = jnp.concatenate([jnp.zeros(1, U32), jnp.cumsum(freqs[:255])])
         # static model → per-symbol (freq, cum) precomputed OUTSIDE the scan
-        # (in-scan gathers cost ~8-16 ns/element on this TPU; see ops.lookup)
+        # (no in-scan gathers; see ops.lookup)
         fc = bulk_lookup256(jnp.stack([freqs, cums], axis=1),
                             x2d.reshape(-1)).reshape(steps, k, 2)
         st = rc_common.make_state(k)
@@ -140,19 +140,7 @@ def _materialize_fn(k: int, e: int, out_cap: int):
     return run
 
 
-@lru_cache(maxsize=64)
-def _materialize_t_fn(e: int, k: int, out_cap: int):
-    """Time-major twin (Pallas encode kernels emit events [E, K])."""
-
-    @jax.jit
-    def run(events_t):
-        return compaction.materialize_t(events_t, out_cap)
-
-    return run
-
-
-def _encode_container(x, k, phase1, header_fn, time_major: bool = False,
-                      pad2d=None):
+def _encode_container(x, k, phase1, header_fn, pad2d=None):
     from cpprcoder_tpu.utils import profiling
 
     n = len(x)
@@ -164,29 +152,10 @@ def _encode_container(x, k, phase1, header_fn, time_major: bool = False,
         total = int(total)
     out_cap = bucket(total)
     with profiling.phase("enc.materialize", total):
-        sizes = None
-        if time_major:
-            from cpprcoder_tpu.ops import expand_pallas
-
-            sizes = np.asarray(jax.device_get(lane_sizes), dtype=np.int64)
-            max_sz = int(sizes.max()) if sizes.size else 0
-            l2 = 4 * bucket(-(-max_sz // 4) + 1)
-            if expand_pallas.usable(events.shape[0], l2):
-                rows, _ = compaction.materialize_rows(events, l2)
-                rows_np = np.asarray(jax.device_get(rows))
-                payload_np = (np.concatenate(
-                    [rows_np[i, : sizes[i]] for i in range(len(sizes))])
-                    if sizes.size else np.zeros(0, np.uint8))
-            else:
-                payload, lane_sizes = _materialize_t_fn(
-                    events.shape[0], k, out_cap)(events)
-                payload_np = np.asarray(jax.device_get(payload))[:total]
-        else:
-            payload, lane_sizes = _materialize_fn(
-                k, events.shape[1], out_cap)(events)
-        if sizes is None:
-            sizes = np.asarray(jax.device_get(lane_sizes), dtype=np.int64)
-            payload_np = np.asarray(jax.device_get(payload))[:total]
+        payload, lane_sizes = _materialize_fn(
+            k, events.shape[1], out_cap)(events)
+        sizes = np.asarray(jax.device_get(lane_sizes), dtype=np.int64)
+        payload_np = np.asarray(jax.device_get(payload))[:total]
     with profiling.phase("enc.assemble", total):
         wide = bool(sizes.max() >= 1 << 16) if len(sizes) else False
         w = header_fn(wide, *[np.asarray(jax.device_get(e)) for e in extra])

@@ -1,6 +1,6 @@
 """JAX K-lane interleaved rANS: CT-ANS1 v2.
 
-TPU design (SURVEY.md §7 phase 3): the 8-state SIMD interleave of
+Lane-parallel design (SURVEY.md §7 phase 3): the 8-state SIMD interleave of
 cppans.h:567-649 generalized to K lanes with PER-LANE u16-word streams
 (v2 — see reference/rans_ref.py for why the v1 shared stream had to go).
 Division-free decode; at most one renorm word per symbol per direction.
@@ -92,8 +92,8 @@ def _stream_fn(slots: int, cap: int):
     """Compact emitted u16 words into the stream.
 
     One stable-by-unique-key sort (emitting slots keyed by their stream
-    rank, the rest pushed to the tail) — searchsorted + gather cost
-    ~165 ms/M queries on v5e, the sort ~1 ms (ops/compaction.py notes)."""
+    rank, the rest pushed to the tail) in place of a searchsorted + gather
+    per output slot."""
 
     @jax.jit
     def run(words, pstart, n_words):

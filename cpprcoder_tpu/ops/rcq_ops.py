@@ -1,7 +1,7 @@
 """JAX (XLA scan) backend for CT-RCQ — the quantized-model adaptive range
 coder (format spec: reference/rcq_ref.py; model: models/qmodel.py).
 
-TPU design notes:
+Design notes:
   - power-of-two model total -> t = range >> QBITS: NO division anywhere in
     the scan body (the reference divides per symbol, cpprcoder.h:402/701).
   - decode symbol search compares cum[s]*t <= code directly (u32-exact
@@ -10,8 +10,7 @@ TPU design notes:
   - decode byte feed: per-lane payloads are re-struck ONCE into [K, L4]
     big-endian u32 word rows (one bulk gather outside the scan); in-scan
     refills are masked reduces over the small row axis — no in-scan
-    gathers at all (measured ~7 ns/lane/step for scan gathers, the round-1
-    decode bottleneck; VERDICT.md "What's weak" #1).
+    gathers at all.
   - encode emits packed events (ops.rc_common, 2 renorm slots) compacted
     outside the scan by ops.compaction, unchanged from CT-RC2.
 """

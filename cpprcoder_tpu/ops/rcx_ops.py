@@ -12,10 +12,10 @@ differences:
   - model = C[2^cbits, 256] context rows; rescale/quantize vectorized over
     rows; ctx = prev >> (8 - cbits) carried per lane through the scan.
 
-This backend is the readable correctness twin (and the VMEM-cap fallback):
-it uses plain XLA gathers/scatters, which serialize on TPU — the fast path
-is ops/rcx_pallas.py. Byte-identical containers across oracle/jax/pallas
-are asserted in tests/test_rcx.py.
+This backend is the plain XLA twin: the route on the CPU, the reference for
+the GPU kernels (ops/rcx_cuda.py), and the route for shapes those kernels do
+not take. Byte-identical containers across oracle/jax are asserted in
+tests/test_rcx.py.
 """
 
 from __future__ import annotations
@@ -61,8 +61,13 @@ def _pad2d_chunked(x: np.ndarray, steps: int, k: int,
 
 @lru_cache(maxsize=64)
 def _encode_fn(steps: int, k: int, inc: int, climit_log2: int, cbits: int,
-               stride: int, wlog: int = 0):
-    """v2 window schedule (wlog > 0): the scan runs over WINDOW chunks of
+               wlog: int = 0):
+    """run(x2d [steps, k] u8, n u32) -> (events [k, 2*steps+2], lane_sizes,
+    total). The lane stride ceil(n/k) is derived from n inside, so one
+    compiled program serves every n with the same step bucket (and the
+    function vmaps over containers).
+
+    v2 window schedule (wlog > 0): the scan runs over WINDOW chunks of
     W = 2^wlog steps; the model requantizes once per chunk (up to 3
     conditional halvings + quantize, models/cxmodel.py) and the W steps
     inside code against the frozen tables while counts keep updating.
@@ -73,6 +78,7 @@ def _encode_fn(steps: int, k: int, inc: int, climit_log2: int, cbits: int,
 
     @jax.jit
     def run(x2d, n):
+        stride = (n + U32(k - 1)) // U32(k)
         st = rc_common.make_state(k)
         lane_ids = jnp.arange(k, dtype=U32)
         C0 = jnp.ones((1 << cbits, 256), U32)
@@ -121,6 +127,13 @@ def _encode_fn(steps: int, k: int, inc: int, climit_log2: int, cbits: int,
     return run
 
 
+def rcx_header(n: int, k: int, wide: bool, inc: int, climit_log2: int,
+               cbits: int, wlog: int) -> ByteWriter:
+    """Container header up to the size table (reference/rcx_ref.py)."""
+    return (ByteWriter().u32(n).u8(_lane_desc(k, wide)).u8(inc)
+            .u8(climit_log2).u8(QBITS).u8(cbits).u8(wlog))
+
+
 def rcx_encode_jax(data, lanes: int | None = None, inc: int | None = None,
                    climit_log2: int | None = None,
                    cbits: int | None = None,
@@ -132,17 +145,15 @@ def rcx_encode_jax(data, lanes: int | None = None, inc: int | None = None,
     k, inc, climit_log2, cbits = rcx_params(n, lanes, inc, cbits)
     wlog = WLOG_DEFAULT if wlog is None else wlog
     if n == 0:
-        return (ByteWriter().u32(0).u8(_lane_desc(k, False))
-                .u8(inc).u8(climit_log2).u8(QBITS).u8(cbits).u8(wlog)
-                .getvalue())
+        return rcx_header(0, k, False, inc, climit_log2, cbits,
+                          wlog).getvalue()
     stride = -(-n // k)
     steps = bucket(stride)
-    fn = _encode_fn(steps, k, inc, climit_log2, cbits, stride, wlog)
+    fn = _encode_fn(steps, k, inc, climit_log2, cbits, wlog)
     phase1 = lambda x2d: fn(x2d, U32(n))
 
     def header(wide):
-        return (ByteWriter().u32(n).u8(_lane_desc(k, wide))
-                .u8(inc).u8(climit_log2).u8(QBITS).u8(cbits).u8(wlog))
+        return rcx_header(n, k, wide, inc, climit_log2, cbits, wlog)
 
     pad = lambda x, steps, k: _pad2d_chunked(x, steps, k, stride)
     return _encode_container(x, k, phase1, header, pad2d=pad)
@@ -152,13 +163,16 @@ def rcx_encode_jax(data, lanes: int | None = None, inc: int | None = None,
 
 @lru_cache(maxsize=64)
 def _decode_fn(steps: int, k: int, inc: int, climit_log2: int, cbits: int,
-               stride: int, l4: int, wlog: int = 0):
+               l4: int, wlog: int = 0):
+    """run(rows_w [k, l4] u32, n u32) -> symbols [steps, k] u8 (the lane
+    stride is derived from n, as in _encode_fn)."""
     climit = 1 << climit_log2
     W = 1 << wlog
     steps_w = -(-steps // W) * W
 
     @jax.jit
     def run(rows_w, n):
+        stride = (n + U32(k - 1)) // U32(k)
         rng = jnp.full(k, 0xFFFFFFFF, U32)
         code = rows_w[:, 0]
         q0 = jnp.zeros(k, U32)
@@ -266,8 +280,8 @@ def rcx_decode_jax(blob) -> bytes:
     stride = -(-n // k)
     steps = bucket(stride)
     with profiling.phase("dec.scan", n):
-        out = _decode_fn(steps, k, inc, climit_log2, cbits, stride,
-                         l4, wlog)(rows_w, U32(n))
+        out = _decode_fn(steps, k, inc, climit_log2, cbits, l4,
+                         wlog)(rows_w, U32(n))
     with profiling.phase("dec.fetch", n):
         arr = np.asarray(jax.device_get(out))       # [steps, k]
         return arr[:stride].T.reshape(-1)[:n].tobytes()

@@ -6,10 +6,10 @@ Single host today, multi-host when hardware appears — the SAME command:
 
 Under a multi-host launcher (GKE/SLURM/manual with JAX_COORDINATOR_ADDRESS
 set, one process per host), `multihost_init` runs `jax.distributed
-.initialize()` and the mesh spans every chip of every host; collectives
-ride ICI within a host and DCN across. `--hosts N` is a declaration used
-to sanity-check the detected topology (process_count), not to spawn
-processes — spawning is the launcher's job.
+.initialize()` and the mesh spans every device of every host; collectives
+ride NVLink within a host and the network across. `--hosts N` is a
+declaration used to sanity-check the detected topology (process_count), not
+to spawn processes — spawning is the launcher's job.
 
 Single-host (no coordinator env), it runs on the local devices — the same
 code path the virtual 8-device CPU mesh CI exercises (tests/test_sharded_

@@ -1,10 +1,11 @@
 """Device-mesh construction for distributed codec runs.
 
 The reference has no communication layer at all (SURVEY.md §2 parallelism
-inventory); the TPU-native equivalents here follow BASELINE.json: blocks are
-data-parallel across chips ('data' axis), the K interleaved coder lanes of a
-block are sharded across chips ('lane' axis) with the shared adaptive model
-replicated and its batched updates all-reduced over ICI.
+inventory); the equivalents here follow BASELINE.json: blocks are
+data-parallel across devices ('data' axis), the K interleaved coder lanes of
+a block are sharded across devices ('lane' axis) with the shared adaptive
+model replicated and its batched updates all-reduced (on GPUs over NVLink,
+all to all, so the mesh shape follows the algorithm alone).
 """
 
 from __future__ import annotations

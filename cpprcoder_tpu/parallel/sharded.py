@@ -2,7 +2,7 @@
 
 Distribution model (BASELINE.json north star):
   - 'data' axis: independent superblocks, one shared-model instance each
-    (pure data parallelism — the TPU generalization of the reference's
+    (pure data parallelism — the device generalization of the reference's
     independent 32 KB blocks, blksort.h:432-442).
   - 'lane' axis: the K interleaved lanes of each superblock are sharded;
     the adaptive frequency table is REPLICATED across lane shards and its

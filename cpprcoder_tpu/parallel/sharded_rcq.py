@@ -1,6 +1,6 @@
 """Mesh-sharded CT-RCQ: distributed encode AND decode (shard_map).
 
-Distribution model (BASELINE.json north star; the TPU generalization of the
+Distribution model (BASELINE.json north star; the device generalization of the
 reference's only parallelism seeds — independent blocks, blksort.h:432-442,
 and interleaved coder states, cppans.h:585-597):
 

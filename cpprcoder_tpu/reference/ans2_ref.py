@@ -2,7 +2,7 @@
 
 Adaptive interleaved rANS — beyond the reference, which has only a static
 rANS (cppans.h). Classic adaptive rANS is encode-hostile (the model runs
-forward, rANS encodes backward); CT-ANS2 resolves it TPU-style with a
+forward, rANS encodes backward); CT-ANS2 resolves it lane-parallel style with a
 *deferred-summation* model: symbol counts accumulate every step, but the
 coding table is a snapshot renormalized to total 2^14 only at window
 boundaries (every 2^refresh_log2 steps). Consequences:

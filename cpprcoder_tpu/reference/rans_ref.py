@@ -8,10 +8,10 @@ backwards (cppans.h:497-530); each lane's emitted words, reversed, are
 exactly that lane's forward read order.
 
 v2 (per-lane streams) replaces v1's single shared stream: a shared stream
-forces the decoder to gather at a data-dependent global cursor, which the
-TPU kernel feed pattern forbids; per-lane rows make the refill the same
-masked reduce as the other Pallas codecs (ops/rans_pallas.py) at the cost
-of one word-count per lane in the header.
+forces the decoder to gather at a data-dependent global cursor shared by
+all lanes; per-lane rows make the refill the same per-lane word read as the
+other lane coders (ops/rcq_ops._rows_fn) at the cost of one word-count per
+lane in the header.
 """
 
 from __future__ import annotations

@@ -83,7 +83,7 @@ def parse_segment(seg: np.ndarray, lazy: bool = True):
 
 
 # --------------------------------------------------------------- parse v2
-# CT-SLZ4 v2 "suffix-neighborhood" parse (the TPU-fast spec; same container
+# CT-SLZ4 v2 "suffix-neighborhood" parse (the device-parallel spec; same container
 # and LZ4 block format, different — and stronger — match selection).
 #
 # All positions of a segment are sorted by (first 16 bytes, position).  Candidates for position i are its rank neighbors at strides

@@ -73,7 +73,7 @@ def phase(name: str, nbytes: int = 0):
 
 
 def add(name: str, seconds: float, nbytes: int = 0) -> None:
-    """Record an externally-measured duration (e.g. a slope-timed kernel)."""
+    """Record an externally-measured duration (e.g. a kernel time read from a device trace)."""
     if not _ENABLED:
         return
     row = _COUNTERS.setdefault(name, [0, 0.0, 0])
@@ -107,7 +107,7 @@ def format_report() -> str:
 
 @contextlib.contextmanager
 def device_trace(log_dir: str):
-    """jax.profiler trace around a block (TensorBoard-viewable); the TPU
+    """jax.profiler trace around a block (TensorBoard-viewable); the device
     equivalent of reading the reference's phase accumulators off a
     debugger."""
     import jax

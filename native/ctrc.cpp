@@ -1,6 +1,6 @@
 // Native host-side implementation of the CT-RC1/CT-RC2 container formats
 // (FORMATS.md). Purpose: a fast bit-exact verifier and host fallback codec
-// for the TPU framework — large-input oracle checks (the 128 MiB adaptive
+// for the device codecs — large-input oracle checks (the 128 MiB adaptive
 // stress test mirrors test/main.cpp:1201-1237 of the reference) run here at
 // native speed instead of through the scalar Python oracle.
 //
@@ -493,7 +493,7 @@ int64_t ct_adaptive_decode(const uint8_t* src, int64_t src_size, uint8_t* dst,
 // ---------------------------------------------------------------- CT-RCQ
 // Quantized-model adaptive range coder (format: reference/rcq_ref.py;
 // model: cpprcoder_tpu/models/qmodel.py). The host verifier twin of the
-// JAX/Pallas backends: containers must be byte-identical.
+// JAX backends: containers must be byte-identical.
 
 static const uint32_t kQBits = 15;
 static const uint32_t kQTotal = 1u << kQBits;
@@ -633,7 +633,7 @@ int64_t ct_rcq_decode(const uint8_t* src, int64_t src_size, uint8_t* dst,
 // reference/rcx_ref.py; model: cpprcoder_tpu/models/cxmodel.py). Chunked
 // lane layout: lane i owns src[i*stride .. i*stride+stride); the context
 // of a symbol is the lane's PREVIOUS byte >> (8 - cbits). Host verifier
-// twin of the JAX/Pallas backends: containers must be byte-identical.
+// twin of the JAX backends: containers must be byte-identical.
 
 namespace {
 

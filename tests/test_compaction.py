@@ -2,6 +2,7 @@
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from cpprcoder_tpu.ops import compaction
 
@@ -112,7 +113,7 @@ def test_materialize_rows_t_matches_flat():
     stride = -(-n // k)
     steps = bucket(stride)
     x2d = jnp.asarray(rcx_ops._pad2d_chunked(x, steps, k, stride))
-    ev, ls, tot = rcx_ops._encode_fn(steps, k, inc, cl, cbits, stride)(
+    ev, ls, tot = rcx_ops._encode_fn(steps, k, inc, cl, cbits)(
         x2d, jnp.uint32(n))
     ev_t = ev.T
     cap = bucket(int(tot) + 8)
@@ -123,3 +124,67 @@ def test_materialize_rows_t_matches_flat():
     rn, sz = np.asarray(rows), np.asarray(sizes)
     flat = np.concatenate([rn[i, : sz[i]] for i in range(k)])
     assert (flat == np.asarray(ref_payload)[: int(tot)]).all()
+
+
+# --------------------------------------------- rows expansion vs numpy
+
+
+def _rand_events(e, k, seed, p_emit=0.5, run_max=3):
+    rng = np.random.default_rng(seed)
+    emit = rng.random((e, k)) < p_emit
+    first = rng.integers(0, 256, (e, k), dtype=np.uint32)
+    carry = rng.integers(0, 2, (e, k), dtype=np.uint32)
+    run = rng.integers(0, run_max + 1, (e, k), dtype=np.uint32)
+    ev = (np.uint32(1) << 31) | (first << 23) | (carry << 22) | run
+    return np.where(emit, ev, 0).astype(np.uint32)
+
+
+def _decode_lanes(events_t, may_drop=None):
+    """Plain per-lane event decoder (FORMATS.md): each emitting event is
+    its first byte then `run` copies of 0xFF (0x00 when the carry bit is
+    set); a lane's first emitted byte (the dummy) is dropped where allowed."""
+    e, k = events_t.shape
+    lanes = []
+    for i in range(k):
+        out = bytearray()
+        for ev in events_t[:, i].tolist():
+            if ev >> 31:
+                run_byte = 0x00 if (ev >> 22) & 1 else 0xFF
+                out.append((ev >> 23) & 0xFF)
+                out.extend([run_byte] * (ev & ((1 << 22) - 1)))
+        if out and (may_drop is None or may_drop[i]):
+            out = out[1:]
+        lanes.append(bytes(out))
+    return lanes
+
+
+def _check_rows(events, may_drop=None):
+    want = _decode_lanes(events, may_drop)
+    l2 = 8
+    while l2 < max(len(w) for w in want):
+        l2 *= 2
+    md = True if may_drop is None else jnp.asarray(may_drop)
+    rows, sizes = compaction.materialize_rows_t(jnp.asarray(events), l2, md)
+    rows, sizes = np.asarray(rows), np.asarray(sizes)
+    assert sizes.tolist() == [len(w) for w in want]
+    for i, w in enumerate(want):
+        assert rows[i, : len(w)].tobytes() == w
+        assert not rows[i, len(w):].any()
+
+
+@pytest.mark.parametrize("e,k,seed", [
+    (18, 8, 0), (34, 128, 1), (130, 200, 2), (257, 64, 3)])
+def test_materialize_rows_t_matches_numpy(e, k, seed):
+    _check_rows(_rand_events(e, k, seed))
+
+
+def test_materialize_rows_t_may_drop_mask():
+    md = np.zeros(16, bool)
+    md[::2] = True
+    _check_rows(_rand_events(40, 16, 7), md)
+
+
+def test_materialize_rows_t_empty_and_sparse_lanes():
+    ev = _rand_events(24, 12, 9, p_emit=0.15)
+    ev[:, 3] = 0                     # lane with no events at all
+    _check_rows(ev)

@@ -87,6 +87,6 @@ def test_profiling_disabled_is_noop():
 def test_profiling_add_and_mbps():
     profiling.enable()
     profiling.reset()
-    profiling.add("kernel.slope", 0.5, 50_000_000)
-    rep = profiling.report()["kernel.slope"]
+    profiling.add("kernel.trace", 0.5, 50_000_000)
+    rep = profiling.report()["kernel.trace"]
     assert rep["MBps"] == pytest.approx(100.0)

@@ -45,3 +45,29 @@ def test_corpus_file(grammar):
     blob = huffman_ops.huffman_encode_jax(grammar)
     assert blob == huffman_ref.huffman_encode(grammar)
     assert huffman_ops.huffman_decode_jax(blob) == grammar
+
+
+def _case(n, seed=0):
+    rng = np.random.default_rng(seed)
+    a = rng.integers(97, 123, n // 2, dtype=np.uint8)
+    b = rng.integers(0, 256, n - n // 2, dtype=np.uint8)
+    return np.concatenate([a, b]).tobytes()
+
+
+@pytest.mark.parametrize("n", [1500, 4096])
+def test_jax_identity_128_lanes(n):
+    data = _case(n)
+    blob = huffman_ops.huffman_encode_jax(data, lanes=128)
+    assert blob == huffman_ref.huffman_encode(data, lanes=128)
+    assert huffman_ops.huffman_decode_jax(blob) == data
+
+
+def test_jax_skewed_symbols():
+    # long codes (near max length) + single-symbol runs
+    rng = np.random.default_rng(2)
+    probs = np.array([2.0 ** -min(i // 16 + 1, 14) for i in range(256)])
+    probs /= probs.sum()
+    data = rng.choice(256, 3000, p=probs).astype(np.uint8).tobytes()
+    blob = huffman_ops.huffman_encode_jax(data, lanes=64)
+    assert blob == huffman_ref.huffman_encode(data, lanes=64)
+    assert huffman_ops.huffman_decode_jax(blob) == data

@@ -1,6 +1,6 @@
 """Property tests: two-level (16×16) lookup paths == flat one-hot specs.
 
-The scan hot loops use coder_step_lookups2 / find_symbol2 (MXU-friendly
+The scan hot loops use coder_step_lookups2 / find_symbol2 (matmul-friendly
 two-level decomposition); these tests pin them to the flat [K,256] forms
 they replaced, including tie cases from zero-frequency symbols (static
 tables) and the active-lane masking contract."""

@@ -64,3 +64,41 @@ def test_registry_roundtrip():
     blob = compress(data, "rcq")
     assert decompress(blob, "rcq") == data
     assert decompress(blob, "rcq", backend="ref") == data
+
+
+def _case(n, seed=0):
+    # mixed entropy: text-ish low values + random tail
+    rng = np.random.default_rng(seed)
+    a = rng.integers(97, 123, n // 2, dtype=np.uint8)
+    b = rng.integers(0, 256, n - n // 2, dtype=np.uint8)
+    return np.concatenate([a, b]).tobytes()
+
+
+@pytest.mark.parametrize("n", [1500, 4096])
+def test_jax_identity_128_lanes(n):
+    data = _case(n)
+    blob = rcq_ops.rcq_encode_jax(data, lanes=128)
+    assert blob == rcq_ref.rcq_encode(data, lanes=128)
+    assert rcq_ops.rcq_decode_jax(blob) == data
+
+
+def test_jax_small_input_default_lanes():
+    data = b"tiny tiny tiny tiny " * 12
+    blob = rcq_ops.rcq_encode_jax(data)
+    assert blob == rcq_ref.rcq_encode(data)
+    assert rcq_ops.rcq_decode_jax(blob) == data
+
+
+@pytest.mark.parametrize("lanes", [32, 64])
+def test_jax_identity_lane_counts(lanes):
+    data = _case(3000, seed=2)
+    blob = rcq_ops.rcq_encode_jax(data, lanes=lanes)
+    assert blob == rcq_ref.rcq_encode(data, lanes=lanes)
+    assert rcq_ops.rcq_decode_jax(blob) == data
+
+
+def test_jax_corpus_file_128_lanes():
+    data = corpus_file("fields.c")
+    blob = rcq_ops.rcq_encode_jax(data, lanes=128)
+    assert blob == rcq_ref.rcq_encode(data, lanes=128)
+    assert rcq_ops.rcq_decode_jax(blob) == data

@@ -1,7 +1,9 @@
 """CT-RCX (context-conditioned quantized adaptive range coder): container
-identity across oracle / XLA / Pallas(interpret) backends, round-trips,
-fuzzed shapes, and the capability claim — ratio below the reference
-adaptive coder's published per-file numbers (BASELINE.md)."""
+identity across oracle / XLA backends, round-trips, fuzzed shapes, and the
+capability claim — ratio below the reference adaptive coder's published
+per-file numbers (BASELINE.md). The GPU kernels' checks are card-only
+(chip_smoke.CARD_CHECKS, run by tests/test_chip_smoke.py on a GPU); their
+host-side wrapper is tested here on the CPU in tests/test_rcx_cuda.py."""
 
 import numpy as np
 import pytest
@@ -14,10 +16,8 @@ from cpprcoder_tpu.models.cxmodel import (
     rcx_params,
     rescale_rows_np,
 )
-from cpprcoder_tpu.ops import rcx_ops, rcx_pallas
+from cpprcoder_tpu.ops import rcx_ops
 from cpprcoder_tpu.reference import rcx_ref
-
-rcx_pallas._INTERPRET = True
 
 
 def _case(n, seed=0, lo=0, hi=256):
@@ -98,42 +98,12 @@ def test_corpus_identity():
     assert rcx_ops.rcx_decode_jax(bo) == data
 
 
-# ---------------------------------------------------- pallas (interpret)
-
-@pytest.mark.parametrize("n", [1500, 4096])
-def test_pallas_encode_identity(n):
-    data = _textish(n, seed=5)
-    assert (rcx_pallas.rcx_encode_pallas(data, lanes=128)
-            == rcx_ref.rcx_encode(data, lanes=128))
-
-
-@pytest.mark.parametrize("n", [1500, 4096])
-def test_pallas_decode_roundtrip(n):
-    data = _textish(n, seed=6)
-    blob = rcx_ref.rcx_encode(data, lanes=128)
-    assert rcx_pallas.rcx_decode_pallas(blob) == data
-
-
-def test_pallas_padded_lanes_and_defaults():
-    data = corpus_file("grammar.lsp")     # k=32 -> padded 128-wide grid
-    blob = rcx_pallas.rcx_encode_pallas(data)
-    assert blob == rcx_ref.rcx_encode(data)
-    assert rcx_pallas.rcx_decode_pallas(blob) == data
-
-
-def test_pallas_cbits4_identity():
-    data = _textish(3000, seed=7)
-    blob = rcx_pallas.rcx_encode_pallas(data, cbits=4)
-    assert blob == rcx_ref.rcx_encode(data, cbits=4)
-    assert rcx_pallas.rcx_decode_pallas(blob) == data
-
-
 # ------------------------------------------------------------ capability
 
 def test_ratio_beats_reference_adaptive():
-    # the headline claim (VERDICT r2 item 3): per-file ratio <= reference
-    # adaptive coder (BASELINE.md). CPU-cheap files only; the full-corpus
-    # check runs in the driver bench.
+    # the headline claim: per-file ratio <= reference adaptive coder
+    # (BASELINE.md). CPU-cheap files only; chip_smoke.py phase (a) prints
+    # every file's ratio.
     ref = {"grammar.lsp": 0.619457, "fields.c": 0.642511,
            "xargs.1": 0.648924}
     for name, r in ref.items():
@@ -152,17 +122,14 @@ def test_registry_roundtrip():
 
 
 def test_wlog_sweep_identity_all_backends():
-    """v2 window schedule: oracle == jax == pallas containers for every
-    wlog, and wlog is decodable from every backend."""
+    """v2 window schedule: oracle == jax containers for every wlog, and
+    wlog is decodable from every backend."""
     data = _textish(3000, seed=3)
     for wlog in (0, 1, 2, 3):
         ref = rcx_ref.rcx_encode(data, wlog=wlog)
         jx = rcx_ops.rcx_encode_jax(data, wlog=wlog)
-        pl_ = rcx_pallas.rcx_encode_pallas(data, wlog=wlog)
         assert jx == ref, wlog
-        assert pl_ == ref, wlog
         assert rcx_ops.rcx_decode_jax(ref) == data
-        assert rcx_pallas.rcx_decode_pallas(ref) == data
         assert rcx_ref.rcx_decode(ref) == data
 
 

@@ -50,3 +50,27 @@ def test_pipeline_variants(grammar):
                    ["mtf", "adaptive_range"]):
         blob = pipeline_encode(grammar, stages=stages)
         assert pipeline_decode(blob) == grammar, stages
+
+
+def test_registry_first_calls_from_threads():
+    # a fresh process whose first codec calls come from 8 threads at once:
+    # every thread must see the full registry
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import threading\n"
+        "from cpprcoder_tpu.codecs import get_codec\n"
+        "errs = []\n"
+        "def f():\n"
+        "    try:\n"
+        "        get_codec('rcx'); get_codec('stream')\n"
+        "    except Exception as e:\n"
+        "        errs.append(e)\n"
+        "ts = [threading.Thread(target=f) for _ in range(8)]\n"
+        "[t.start() for t in ts]; [t.join() for t in ts]\n"
+        "assert not errs, errs\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", code], cwd=root, check=True,
+                   env=dict(os.environ, JAX_PLATFORMS="cpu"))
