@@ -347,8 +347,8 @@ def card_kernels_match_xla_twins():
     import jax.numpy as jnp
 
     from cpprcoder_tpu.models.cxmodel import WLOG_DEFAULT, rcx_params
-    from cpprcoder_tpu.ops import rcx_cuda
-    from cpprcoder_tpu.ops.rcx_ops import _pad2d_chunked
+    from cpprcoder_tpu.ops import rcx_cuda, rcx_ops
+    from cpprcoder_tpu.ops.rcq_ops import _rows_fn
     from cpprcoder_tpu.utils.shapes import bucket
 
     _on_gpu()
@@ -359,23 +359,21 @@ def card_kernels_match_xla_twins():
         stride = -(-len(x) // k)
         steps = bucket(stride)
         kw = dict(inc=inc, climit_log2=cl, cbits=cbits, wlog=WLOG_DEFAULT)
-        x3d = jnp.asarray(_pad2d_chunked(x, steps, k, stride)[None])
+        x3d = jnp.asarray(rcx_ops._pad2d_chunked(x, steps, k, stride)[None])
         n = jnp.asarray([len(x)], jnp.int32)
         ev = rcx_cuda.kernel_events(x3d, n, **kw)
         assert (np.asarray(ev) == np.asarray(
-            rcx_cuda.xla_events(x3d, n, **kw))).all(), f"events K={k}"
+            rcx_ops.xla_events(x3d, n, **kw))).all(), f"events K={k}"
         blob = compress(data, codec="rcx", lanes=lanes)
-        _, _, _, _, _, _, sizes, payload = rcx_cuda._parse(blob)
+        _, _, _, _, _, _, sizes, payload = rcx_ops._parse(blob)
         l4 = bucket(-(-int(sizes.max()) // 4) + 1)
-        from cpprcoder_tpu.ops.rcq_ops import _rows_fn
-
         p_cap = bucket(len(payload))
         padded = np.zeros(p_cap, np.uint8)
         padded[: len(payload)] = payload
         rows = _rows_fn(k, l4, p_cap)(jnp.asarray(padded),
                                       jnp.asarray(sizes))[None]
         # positions past a lane's end hold no symbol: compare the bytes
-        for fn in (rcx_cuda.kernel_symbols, rcx_cuda.xla_symbols):
+        for fn in (rcx_cuda.kernel_symbols, rcx_ops.xla_symbols):
             grid = np.asarray(fn(rows, n, steps, **kw))[0, :stride]
             expect_equal(f"{fn.__name__} K={k}",
                          grid.T.reshape(-1)[: len(x)].tobytes(), data)

@@ -8,8 +8,8 @@ capability the reference does not have (its AdaptiveFrequencyTable is
 order-0, cpprcoder.h:256-298); CT-RCX beats the reference adaptive coder's
 ratio on every Canterbury file.
 Format: reference/rcx_ref.py. Routes (codecs/base.py): the CUDA kernels on
-a GPU (ops/rcx_cuda.py), "jax" (XLA scan), "ref" (host oracle); all
-produce byte-identical containers.
+a GPU (ops/rcx_cuda.py), "jax" (XLA scan, ops/rcx_ops.py), "ref" (host
+oracle); all produce byte-identical containers.
 """
 
 from __future__ import annotations
@@ -31,26 +31,32 @@ def _params(n: int, lanes=None, inc=None, climit_log2=None, cbits=None,
                 wlog=wlog)
 
 
-def _each(fn):
-    return lambda items, params: [fn(x, **p) for x, p in zip(items, params)]
+def _kernel_encode(xs, params) -> list[bytes]:
+    from cpprcoder_tpu.ops import rcx_cuda, rcx_ops
+
+    return rcx_ops.encode_many(xs, params, events_fn=rcx_cuda.kernel_events)
 
 
-def _each_blob(fn):
-    return lambda blobs: [fn(b) for b in blobs]
+def _kernel_decode(blobs) -> list[bytes]:
+    from cpprcoder_tpu.ops import rcx_cuda, rcx_ops
+
+    return rcx_ops.decode_many(blobs, symbols_fn=rcx_cuda.kernel_symbols)
 
 
 def encode_many(chunks, backend: str | None = None, **opts) -> list[bytes]:
-    """One container per chunk; on the kernel route one launch per group
-    of chunks with equal parameters (one thread block per container)."""
+    """One container per chunk. Both device routes frame containers in
+    rcx_ops.encode_many: one launch per group of chunks with equal
+    parameters (on the kernel route one thread block per container)."""
     from cpprcoder_tpu.ops import rcx_cuda, rcx_ops
 
     xs = [as_u8(c) for c in chunks]
     params = [_params(len(x), **opts) for x in xs]
     shapes = [rcx_params(len(x), p["lanes"], p["inc"], p["cbits"])
               for x, p in zip(xs, params)]
-    fn = pick_backend(backend, _each(rcx_ops.rcx_encode_jax),
-                      _each(rcx_ref.rcx_encode),
-                      kernel_fn=rcx_cuda.encode_many,
+    ref = lambda items, ps: [rcx_ref.rcx_encode(x, **p)
+                             for x, p in zip(items, ps)]
+    fn = pick_backend(backend, rcx_ops.encode_many, ref,
+                      kernel_fn=_kernel_encode,
                       kernel_takes=all(rcx_cuda.takes(s[0], s[3])
                                        for s in shapes))
     return fn(xs, params)
@@ -59,12 +65,13 @@ def encode_many(chunks, backend: str | None = None, **opts) -> list[bytes]:
 def decode_many(blobs, backend: str | None = None) -> list[bytes]:
     from cpprcoder_tpu.ops import rcx_cuda, rcx_ops
 
-    fn = pick_backend(backend, _each_blob(rcx_ops.rcx_decode_jax),
-                      _each_blob(rcx_ref.rcx_decode),
-                      kernel_fn=rcx_cuda.decode_many,
-                      kernel_takes=all(rcx_cuda.takes(*rcx_cuda.header_shape(b))
+    blobs = list(blobs)
+    ref = lambda items: [rcx_ref.rcx_decode(b) for b in items]
+    fn = pick_backend(backend, rcx_ops.decode_many, ref,
+                      kernel_fn=_kernel_decode,
+                      kernel_takes=all(rcx_cuda.takes(*rcx_ops.header_shape(b))
                                        for b in blobs))
-    return fn(list(blobs))
+    return fn(blobs)
 
 
 def encode(data, backend: str | None = None, **opts) -> bytes:

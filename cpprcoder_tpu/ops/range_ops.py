@@ -140,13 +140,13 @@ def _materialize_fn(k: int, e: int, out_cap: int):
     return run
 
 
-def _encode_container(x, k, phase1, header_fn, pad2d=None):
+def _encode_container(x, k, phase1, header_fn):
     from cpprcoder_tpu.utils import profiling
 
     n = len(x)
     steps = bucket(-(-n // k)) if n else 1
     assert steps * 3 + 2 < (1 << rc_common.EV_RUN_BITS), "superblock too large"
-    x2d = (pad2d or _pad2d)(x, steps, k)
+    x2d = _pad2d(x, steps, k)
     with profiling.phase("enc.scan", n):
         events, lane_sizes, total, *extra = phase1(x2d)
         total = int(total)

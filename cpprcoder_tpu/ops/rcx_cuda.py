@@ -1,23 +1,19 @@
 """CT-RCX on the GPU: the CUDA kernels of native/rcx_cuda.cu, through jax.ffi.
 
 The kernels run the coder's whole step loop, one thread block per container
-(design notes in the .cu file). Everything around them is shared with the XLA
-twin (ops/rcx_ops.py): the chunked lane layout, the event packing of
-ops/rc_common.py, the XLA expansion of ops/compaction.py, the word rows of
-ops/rcq_ops._rows_fn and the container framing. A batch of containers runs
+(design notes in the .cu file). They have the signatures of the XLA twins in
+ops/rcx_ops.py (xla_events / xla_symbols), and the container framing there
+(rcx_ops.encode_many / decode_many) frames their output as it frames the
+twins': the kernel route and the XLA route differ only in the coder loop.
 
-    encode: host pad -> x [nc, steps, K] -> kernel -> events [nc, E, K]
-            -> compaction.materialize_t per container -> header+sizes+payload
-    decode: header -> word rows [nc, K, L4] -> kernel -> symbols [nc, steps, K]
-
-Containers sharing (K, inc, climit, cbits, wlog, steps) go into one launch.
-`xla_events` and `xla_symbols` are the plain XLA twins of the two kernels, with
-the same signatures: the CPU tests feed the wrapper through them, and the
-chip check compares the kernels with them at real widths.
+    kernel_events:  x [nc, steps, K] u8, n [nc] -> events [nc, 2*steps+2, K]
+    kernel_symbols: word rows [nc, K, L4] u32, n [nc] -> symbols [nc, steps, K]
 
 The library is built with nvcc from the tracked source into build/ at first
 use; `build_seconds` records how long that took (set-up time). Without nvcc,
-or when the build fails, `library()` raises: nothing falls back.
+or when the build fails, `library()` raises: nothing falls back. A shape the
+kernels do not take (`takes`) raises too; the route rule (codecs/rcx.py)
+sends such shapes to the XLA twin.
 """
 
 from __future__ import annotations
@@ -28,21 +24,10 @@ import os
 import shutil
 import subprocess
 import time
-from functools import lru_cache
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-
-from cpprcoder_tpu.core.bytesutil import (
-    ByteReader,
-    CorruptContainerError,
-    as_u8,
-)
-from cpprcoder_tpu.models.cxmodel import WLOG_DEFAULT, rcx_params
-from cpprcoder_tpu.ops.rc_common import EV_RUN_BITS
-from cpprcoder_tpu.reference.rc_ref import _write_sizes
-from cpprcoder_tpu.utils.shapes import bucket
 
 _ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
 SRC = os.path.join(_ROOT, "native", "rcx_cuda.cu")
@@ -127,6 +112,9 @@ def library():
 
 
 def _attrs(k, inc, climit_log2, cbits, wlog):
+    if not takes(k, cbits):
+        raise ValueError(f"CT-RCX kernels do not take K={k} "
+                         f"cbits={cbits}; route it to the XLA twin")
     threads, lpt, smem = launch_shape(k, cbits)
     return {name: np.int32(v) for name, v in (
         ("inc", inc), ("climit_log2", climit_log2), ("cbits", cbits),
@@ -135,214 +123,20 @@ def _attrs(k, inc, climit_log2, cbits, wlog):
 
 def kernel_events(x3d, n_vec, *, inc, climit_log2, cbits, wlog):
     """x [nc, steps, K] u8, n [nc] i32 -> events [nc, 2*steps+2, K] u32."""
-    library()
     nc, steps, k = x3d.shape
+    attrs = _attrs(k, inc, climit_log2, cbits, wlog)
+    library()
     return jax.ffi.ffi_call(
         ENCODE_TARGET,
         jax.ShapeDtypeStruct((nc, 2 * steps + 2, k), jnp.uint32))(
-            x3d, n_vec, **_attrs(k, inc, climit_log2, cbits, wlog))
+            x3d, n_vec, **attrs)
 
 
 def kernel_symbols(rows_w, n_vec, steps, *, inc, climit_log2, cbits, wlog):
     """word rows [nc, K, L4] u32, n [nc] i32 -> symbols [nc, steps, K] u8."""
-    library()
     nc, k, _ = rows_w.shape
+    attrs = _attrs(k, inc, climit_log2, cbits, wlog)
+    library()
     return jax.ffi.ffi_call(
         DECODE_TARGET, jax.ShapeDtypeStruct((nc, steps, k), jnp.uint8))(
-            rows_w, n_vec, **_attrs(k, inc, climit_log2, cbits, wlog))
-
-
-def xla_events(x3d, n_vec, *, inc, climit_log2, cbits, wlog):
-    """Plain twin of kernel_events: the XLA scan, vmapped over containers."""
-    from cpprcoder_tpu.ops.rcx_ops import _encode_fn
-
-    _, steps, k = x3d.shape
-    fn = _encode_fn(steps, k, inc, climit_log2, cbits, wlog)
-    return jax.vmap(lambda x2d, n: fn(x2d, n)[0].T)(
-        x3d, n_vec.astype(jnp.uint32))
-
-
-def xla_symbols(rows_w, n_vec, steps, *, inc, climit_log2, cbits, wlog):
-    """Plain twin of kernel_symbols."""
-    from cpprcoder_tpu.ops.rcx_ops import _decode_fn
-
-    _, k, l4 = rows_w.shape
-    fn = _decode_fn(steps, k, inc, climit_log2, cbits, l4, wlog)
-    return jax.vmap(fn)(rows_w, n_vec.astype(jnp.uint32))
-
-
-# ------------------------------------------------------------------ encode
-
-MAT_BATCH = 32          # containers expanded per dispatch (bounds memory)
-
-
-@lru_cache(maxsize=64)
-def _events_fn(events_fn, inc, climit_log2, cbits, wlog):
-    """One dispatch: events [nc, E, K] and the payload bytes per lane
-    [nc, K] (every emitting event's 1 + run bytes, less the lane's dropped
-    dummy byte)."""
-    from cpprcoder_tpu.ops.compaction import event_fields
-
-    @jax.jit
-    def run(x3d, n_vec):
-        events = events_fn(x3d, n_vec, inc=inc, climit_log2=climit_log2,
-                           cbits=cbits, wlog=wlog)
-        emit, _, _, run_len = event_fields(events)
-        cnt = jnp.where(emit, 1 + run_len, 0).sum(axis=1, dtype=jnp.int32)
-        return events, cnt - jnp.any(emit, axis=1).astype(jnp.int32)
-
-    return run
-
-
-@lru_cache(maxsize=64)
-def _payloads_fn(out_cap: int):
-    from cpprcoder_tpu.ops.compaction import materialize_t
-
-    return jax.jit(jax.vmap(lambda ev: materialize_t(ev, out_cap)[0]))
-
-
-def _encode_group(chunks, k, inc, climit_log2, cbits, wlog, steps,
-                  events_fn):
-    from cpprcoder_tpu.ops.rcx_ops import _pad2d_chunked, rcx_header
-    from cpprcoder_tpu.utils import profiling
-
-    n_vec = np.asarray([len(x) for x in chunks], np.int32)
-    x3d = np.stack([_pad2d_chunked(x, steps, k, -(-len(x) // k))
-                    for x in chunks])
-    with profiling.phase("enc.scan", int(n_vec.sum())):
-        events, sizes = _events_fn(events_fn, inc, climit_log2, cbits,
-                                   wlog)(x3d, n_vec)
-        sizes = np.asarray(jax.device_get(sizes), np.int64)
-    totals = sizes.sum(axis=1)
-    mat = _payloads_fn(bucket(int(totals.max())))
-    with profiling.phase("enc.materialize", int(totals.sum())):
-        payloads = np.concatenate(jax.device_get(
-            [mat(events[i:i + MAT_BATCH])
-             for i in range(0, len(chunks), MAT_BATCH)]))
-    blobs = []
-    for i, x in enumerate(chunks):
-        wide = bool(sizes[i].max() >= 1 << 16)
-        w = rcx_header(len(x), k, wide, inc, climit_log2, cbits, wlog)
-        _write_sizes(w, sizes[i].tolist(), wide)
-        w.raw(payloads[i, : totals[i]].tobytes())
-        blobs.append(w.getvalue())
-    return blobs
-
-
-def encode_many(chunks, params=None, events_fn=kernel_events) -> list[bytes]:
-    """Encode each chunk to its CT-RCX container (== rcx_ref.rcx_encode).
-
-    params: one dict per chunk of the rcx_encode options (lanes, inc,
-    climit_log2, cbits, wlog); None takes the defaults. Parameters resolve as
-    in the XLA twin (ops/rcx_ops.rcx_encode_jax)."""
-    from cpprcoder_tpu.ops.rcx_ops import rcx_header
-
-    xs = [as_u8(c) for c in chunks]
-    params = params or [{}] * len(xs)
-    blobs: list[bytes | None] = [None] * len(xs)
-    groups: dict[tuple, list[int]] = {}
-    for i, (x, p) in enumerate(zip(xs, params)):
-        k, inc, cl, cbits = rcx_params(len(x), p.get("lanes"), p.get("inc"),
-                                       p.get("cbits"))
-        wlog = WLOG_DEFAULT if p.get("wlog") is None else p["wlog"]
-        if not takes(k, cbits):
-            raise ValueError(f"CT-RCX kernels do not take K={k} "
-                             f"cbits={cbits}; route it to the XLA twin")
-        if len(x) == 0:
-            blobs[i] = rcx_header(0, k, False, inc, cl, cbits,
-                                  wlog).getvalue()
-            continue
-        steps = bucket(-(-len(x) // k))
-        assert steps * 3 + 2 < (1 << EV_RUN_BITS), "superblock too large"
-        groups.setdefault((k, inc, cl, cbits, wlog, steps), []).append(i)
-    for key, idx in groups.items():
-        for i, b in zip(idx, _encode_group([xs[i] for i in idx], *key,
-                                           events_fn)):
-            blobs[i] = b
-    return blobs
-
-
-# ------------------------------------------------------------------ decode
-
-def _parse(blob):
-    from cpprcoder_tpu.ops.rcx_ops import _parse_rcx_header
-
-    r = ByteReader(blob)
-    n, k, wide, inc, cl, cbits, wlog = _parse_rcx_header(r)
-    sizes = payload = None
-    if n:
-        sizes = (r.u32s(k) if wide else r.u16s(k)).astype(np.int32)
-        payload = r.rest()
-        if int(sizes.sum()) > len(payload):
-            raise CorruptContainerError(
-                f"size table claims {int(sizes.sum())} payload bytes, "
-                f"container has {len(payload)}")
-    return n, k, inc, cl, cbits, wlog, sizes, payload
-
-
-def header_shape(blob) -> tuple[int, int]:
-    """(K, cbits) of a CT-RCX container, for the route rule."""
-    from cpprcoder_tpu.ops.rcx_ops import _parse_rcx_header
-
-    _, k, _, _, _, cbits, _ = _parse_rcx_header(ByteReader(blob))
-    return k, cbits
-
-
-@lru_cache(maxsize=64)
-def _symbols_fn(symbols_fn, steps, k, inc, climit_log2, cbits, wlog, l4,
-                p_cap):
-    """One dispatch: payloads [nc, p_cap] -> word rows [nc, K, L4] ->
-    symbols [nc, steps, K]."""
-    from cpprcoder_tpu.ops.rcq_ops import _rows_fn
-
-    rows_fn = jax.vmap(_rows_fn(k, l4, p_cap))
-
-    @jax.jit
-    def run(payloads, sizes, n_vec):
-        return symbols_fn(rows_fn(payloads, sizes), n_vec, steps, inc=inc,
-                          climit_log2=climit_log2, cbits=cbits, wlog=wlog)
-
-    return run
-
-
-def _decode_group(parsed, k, inc, climit_log2, cbits, wlog, steps,
-                  symbols_fn):
-    from cpprcoder_tpu.utils import profiling
-
-    l4 = bucket(-(-max(int(p[6].max()) for p in parsed) // 4) + 1)
-    p_cap = bucket(max(max(len(p[7]) for p in parsed), 1))
-    payloads = np.zeros((len(parsed), p_cap), np.uint8)
-    for i, p in enumerate(parsed):
-        payloads[i, : len(p[7])] = p[7]
-    sizes = np.stack([p[6] for p in parsed])
-    n_vec = np.asarray([p[0] for p in parsed], np.int32)
-    with profiling.phase("dec.scan", int(n_vec.sum())):
-        syms = _symbols_fn(symbols_fn, steps, k, inc, climit_log2, cbits,
-                           wlog, l4, p_cap)(payloads, sizes, n_vec)
-        arr = np.asarray(jax.device_get(syms))
-    out = []
-    for i, n in enumerate(n_vec.tolist()):
-        stride = -(-n // k)
-        out.append(arr[i, :stride].T.reshape(-1)[:n].tobytes())
-    return out
-
-
-def decode_many(blobs, symbols_fn=kernel_symbols) -> list[bytes]:
-    parsed = [_parse(b) for b in blobs]
-    out: list[bytes | None] = [None] * len(blobs)
-    groups: dict[tuple, list[int]] = {}
-    for i, p in enumerate(parsed):
-        n, k, inc, cl, cbits, wlog = p[:6]
-        if not takes(k, cbits):
-            raise ValueError(f"CT-RCX kernels do not take K={k} "
-                             f"cbits={cbits}; route it to the XLA twin")
-        if n == 0:
-            out[i] = b""
-            continue
-        steps = bucket(-(-n // k))
-        groups.setdefault((k, inc, cl, cbits, wlog, steps), []).append(i)
-    for key, idx in groups.items():
-        for i, b in zip(idx, _decode_group([parsed[i] for i in idx], *key,
-                                           symbols_fn)):
-            out[i] = b
-    return out
+            rows_w, n_vec, **attrs)

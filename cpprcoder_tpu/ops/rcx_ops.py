@@ -1,9 +1,8 @@
-"""JAX (XLA scan) backend for CT-RCX — the context-conditioned quantized
-adaptive range coder (format spec: reference/rcx_ref.py; model:
-models/cxmodel.py).
+"""CT-RCX — the context-conditioned quantized adaptive range coder (format
+spec: reference/rcx_ref.py; model: models/cxmodel.py): the XLA scans and
+the host container framing every device route shares.
 
-Same coder core and container machinery as CT-RCQ (ops/rcq_ops.py), two
-differences:
+Same coder core as CT-RCQ (ops/rcq_ops.py), two differences:
 
   - CHUNKED lane layout: lane i owns contiguous bytes
     x[i*stride:(i+1)*stride], stride = ceil(n/K) — so each lane's previous
@@ -12,10 +11,11 @@ differences:
   - model = C[2^cbits, 256] context rows; rescale/quantize vectorized over
     rows; ctx = prev >> (8 - cbits) carried per lane through the scan.
 
-This backend is the plain XLA twin: the route on the CPU, the reference for
-the GPU kernels (ops/rcx_cuda.py), and the route for shapes those kernels do
-not take. Byte-identical containers across oracle/jax are asserted in
-tests/test_rcx.py.
+The scans are the plain XLA twin of the GPU kernels (ops/rcx_cuda.py): the
+route on the CPU, the reference on the card, and the route for shapes the
+kernels do not take. encode_many/decode_many frame the containers for both;
+the route passes in the coder loop. Byte-identical containers across
+oracle/jax are asserted in tests/test_rcx.py.
 """
 
 from __future__ import annotations
@@ -27,18 +27,27 @@ import jax.lax as lax
 import jax.numpy as jnp
 import numpy as np
 
-from cpprcoder_tpu.core.bytesutil import ByteReader, ByteWriter, as_u8
+from cpprcoder_tpu.core.bytesutil import (
+    ByteReader,
+    ByteWriter,
+    CorruptContainerError,
+    as_u8,
+)
 from cpprcoder_tpu.models.cxmodel import (
     QBITS,
     QTOTAL,
+    WLOG_DEFAULT,
     quantize_rows_jnp,
     rcx_params,
     rescale_rows_jnp,
 )
 from cpprcoder_tpu.ops import rc_common
-from cpprcoder_tpu.ops.range_ops import _encode_container
 from cpprcoder_tpu.ops.rcq_ops import _rows_fn, _row_select
-from cpprcoder_tpu.reference.rc_ref import _lane_desc, _parse_lane_desc
+from cpprcoder_tpu.reference.rc_ref import (
+    _lane_desc,
+    _parse_lane_desc,
+    _write_sizes,
+)
 from cpprcoder_tpu.utils.shapes import bucket
 
 U32 = jnp.uint32
@@ -134,31 +143,6 @@ def rcx_header(n: int, k: int, wide: bool, inc: int, climit_log2: int,
             .u8(climit_log2).u8(QBITS).u8(cbits).u8(wlog))
 
 
-def rcx_encode_jax(data, lanes: int | None = None, inc: int | None = None,
-                   climit_log2: int | None = None,
-                   cbits: int | None = None,
-                   wlog: int | None = None) -> bytes:
-    from cpprcoder_tpu.models.cxmodel import WLOG_DEFAULT
-
-    x = as_u8(data)
-    n = len(x)
-    k, inc, climit_log2, cbits = rcx_params(n, lanes, inc, cbits)
-    wlog = WLOG_DEFAULT if wlog is None else wlog
-    if n == 0:
-        return rcx_header(0, k, False, inc, climit_log2, cbits,
-                          wlog).getvalue()
-    stride = -(-n // k)
-    steps = bucket(stride)
-    fn = _encode_fn(steps, k, inc, climit_log2, cbits, wlog)
-    phase1 = lambda x2d: fn(x2d, U32(n))
-
-    def header(wide):
-        return rcx_header(n, k, wide, inc, climit_log2, cbits, wlog)
-
-    pad = lambda x, steps, k: _pad2d_chunked(x, steps, k, stride)
-    return _encode_container(x, k, phase1, header, pad2d=pad)
-
-
 # ------------------------------------------------------------------ decode
 
 @lru_cache(maxsize=64)
@@ -243,8 +227,6 @@ def _parse_rcx_header(r: ByteReader):
     qbits = r.u8()
     cbits = r.u8()
     wlog = r.u8()
-    from cpprcoder_tpu.core.bytesutil import CorruptContainerError
-
     if qbits != QBITS:
         raise CorruptContainerError(
             f"container qbits {qbits} != build {QBITS}")
@@ -255,33 +237,201 @@ def _parse_rcx_header(r: ByteReader):
     return n, k, wide, inc, climit_log2, cbits, wlog
 
 
-def rcx_decode_jax(blob) -> bytes:
-    r = ByteReader(blob)
-    n, k, wide, inc, climit_log2, cbits, wlog = _parse_rcx_header(r)
-    if n == 0:
-        return b""
-    sizes = (r.u32s(k) if wide else r.u16s(k)).astype(np.int32)
-    payload = r.rest()
-    if int(sizes.sum()) > len(payload):
-        from cpprcoder_tpu.core.bytesutil import CorruptContainerError
 
-        raise CorruptContainerError(
-            f"size table claims {int(sizes.sum())} payload bytes, "
-            f"container has {len(payload)}")
+
+# ------------------------------------------------- the kernels' XLA twins
+
+def xla_events(x3d, n_vec, *, inc, climit_log2, cbits, wlog):
+    """x [nc, steps, K] u8, n [nc] i32 -> events [nc, 2*steps+2, K] u32:
+    the XLA scan vmapped over containers (twin of rcx_cuda.kernel_events)."""
+    _, steps, k = x3d.shape
+    fn = _encode_fn(steps, k, inc, climit_log2, cbits, wlog)
+    return jax.vmap(lambda x2d, n: fn(x2d, n)[0].T)(
+        x3d, n_vec.astype(U32))
+
+
+def xla_symbols(rows_w, n_vec, steps, *, inc, climit_log2, cbits, wlog):
+    """word rows [nc, K, L4] u32, n [nc] i32 -> symbols [nc, steps, K] u8
+    (twin of rcx_cuda.kernel_symbols)."""
+    _, k, l4 = rows_w.shape
+    fn = _decode_fn(steps, k, inc, climit_log2, cbits, l4, wlog)
+    return jax.vmap(fn)(rows_w, n_vec.astype(U32))
+
+
+# ------------------------------------------------------------ containers
+#
+# One host framing path builds CT-RCX containers for every device route;
+# the route only picks the coder loop (events_fn / symbols_fn: the XLA twins
+# above or the CUDA kernels of ops/rcx_cuda.py). Containers sharing (K, inc,
+# climit, cbits, wlog, steps) run as one launch of up to LAUNCH_BYTES of
+# padded input, so device memory is bounded however many containers a call
+# holds:
+#
+#   encode: host pad -> x [nc, steps, K] -> events_fn -> events [nc, E, K]
+#           -> compaction.materialize_t per container -> header+sizes+payload
+#   decode: header -> word rows [nc, K, L4] -> symbols_fn -> [nc, steps, K]
+
+LAUNCH_BYTES = 128 << 20  # 128 one-MiB superblocks: ~1 GiB of events
+MAT_BATCH = 32            # containers expanded per dispatch (bounds memory)
+
+
+def _launches(idx: list[int], steps: int, k: int) -> list[list[int]]:
+    per = max(1, LAUNCH_BYTES // (steps * k))
+    return [idx[i:i + per] for i in range(0, len(idx), per)]
+
+
+@lru_cache(maxsize=64)
+def _events_fn(events_fn, inc, climit_log2, cbits, wlog):
+    """One dispatch: events [nc, E, K] and the payload bytes per lane
+    [nc, K] (every emitting event's 1 + run bytes, less the lane's dropped
+    dummy byte)."""
+    from cpprcoder_tpu.ops.compaction import event_fields
+
+    @jax.jit
+    def run(x3d, n_vec):
+        events = events_fn(x3d, n_vec, inc=inc, climit_log2=climit_log2,
+                           cbits=cbits, wlog=wlog)
+        emit, _, _, run_len = event_fields(events)
+        cnt = jnp.where(emit, 1 + run_len, 0).sum(axis=1, dtype=I32)
+        return events, cnt - jnp.any(emit, axis=1).astype(I32)
+
+    return run
+
+
+@lru_cache(maxsize=64)
+def _payloads_fn(out_cap: int):
+    from cpprcoder_tpu.ops.compaction import materialize_t
+
+    return jax.jit(jax.vmap(lambda ev: materialize_t(ev, out_cap)[0]))
+
+
+def _encode_group(chunks, k, inc, climit_log2, cbits, wlog, steps,
+                  events_fn):
     from cpprcoder_tpu.utils import profiling
 
-    p_cap = bucket(max(len(payload), 1))
-    padded = np.zeros(p_cap, dtype=np.uint8)
-    padded[: len(payload)] = payload
-    l4 = bucket(-(-int(sizes.max()) // 4) + 1)
-    with profiling.phase("dec.rows", len(payload)):
-        rows_w = _rows_fn(k, l4, p_cap)(jnp.asarray(padded),
-                                        jnp.asarray(sizes))
-    stride = -(-n // k)
-    steps = bucket(stride)
-    with profiling.phase("dec.scan", n):
-        out = _decode_fn(steps, k, inc, climit_log2, cbits, l4,
-                         wlog)(rows_w, U32(n))
-    with profiling.phase("dec.fetch", n):
-        arr = np.asarray(jax.device_get(out))       # [steps, k]
-        return arr[:stride].T.reshape(-1)[:n].tobytes()
+    n_vec = np.asarray([len(x) for x in chunks], np.int32)
+    x3d = np.stack([_pad2d_chunked(x, steps, k, -(-len(x) // k))
+                    for x in chunks])
+    with profiling.phase("enc.scan", int(n_vec.sum())):
+        events, sizes = _events_fn(events_fn, inc, climit_log2, cbits,
+                                   wlog)(x3d, n_vec)
+        sizes = np.asarray(jax.device_get(sizes), np.int64)
+    totals = sizes.sum(axis=1)
+    mat = _payloads_fn(bucket(int(totals.max())))
+    with profiling.phase("enc.materialize", int(totals.sum())):
+        payloads = np.concatenate(jax.device_get(
+            [mat(events[i:i + MAT_BATCH])
+             for i in range(0, len(chunks), MAT_BATCH)]))
+    blobs = []
+    for i, x in enumerate(chunks):
+        wide = bool(sizes[i].max() >= 1 << 16)
+        w = rcx_header(len(x), k, wide, inc, climit_log2, cbits, wlog)
+        _write_sizes(w, sizes[i].tolist(), wide)
+        w.raw(payloads[i, : totals[i]].tobytes())
+        blobs.append(w.getvalue())
+    return blobs
+
+
+def encode_many(chunks, params=None, events_fn=xla_events) -> list[bytes]:
+    """Encode each chunk to its CT-RCX container (== rcx_ref.rcx_encode).
+
+    params: one dict per chunk of the rcx_encode options (lanes, inc,
+    cbits, wlog); None takes the defaults (models/cxmodel.rcx_params)."""
+    xs = [as_u8(c) for c in chunks]
+    params = params or [{}] * len(xs)
+    blobs: list[bytes | None] = [None] * len(xs)
+    groups: dict[tuple, list[int]] = {}
+    for i, (x, p) in enumerate(zip(xs, params)):
+        k, inc, cl, cbits = rcx_params(len(x), p.get("lanes"), p.get("inc"),
+                                       p.get("cbits"))
+        wlog = WLOG_DEFAULT if p.get("wlog") is None else p["wlog"]
+        if len(x) == 0:
+            blobs[i] = rcx_header(0, k, False, inc, cl, cbits,
+                                  wlog).getvalue()
+            continue
+        steps = bucket(-(-len(x) // k))
+        assert steps * 3 + 2 < (1 << rc_common.EV_RUN_BITS), \
+            "superblock too large"
+        groups.setdefault((k, inc, cl, cbits, wlog, steps), []).append(i)
+    for key, idx in groups.items():
+        for launch in _launches(idx, key[-1], key[0]):
+            for i, b in zip(launch, _encode_group([xs[i] for i in launch],
+                                                  *key, events_fn)):
+                blobs[i] = b
+    return blobs
+
+
+def _parse(blob):
+    r = ByteReader(blob)
+    n, k, wide, inc, cl, cbits, wlog = _parse_rcx_header(r)
+    sizes = payload = None
+    if n:
+        sizes = (r.u32s(k) if wide else r.u16s(k)).astype(np.int32)
+        payload = r.rest()
+        if int(sizes.sum()) > len(payload):
+            raise CorruptContainerError(
+                f"size table claims {int(sizes.sum())} payload bytes, "
+                f"container has {len(payload)}")
+    return n, k, inc, cl, cbits, wlog, sizes, payload
+
+
+def header_shape(blob) -> tuple[int, int]:
+    """(K, cbits) of a CT-RCX container, for the route rule."""
+    _, k, _, _, _, cbits, _ = _parse_rcx_header(ByteReader(blob))
+    return k, cbits
+
+
+@lru_cache(maxsize=64)
+def _symbols_fn(symbols_fn, steps, k, inc, climit_log2, cbits, wlog, l4,
+                p_cap):
+    """One dispatch: payloads [nc, p_cap] -> word rows [nc, K, L4] ->
+    symbols [nc, steps, K]."""
+    rows_fn = jax.vmap(_rows_fn(k, l4, p_cap))
+
+    @jax.jit
+    def run(payloads, sizes, n_vec):
+        return symbols_fn(rows_fn(payloads, sizes), n_vec, steps, inc=inc,
+                          climit_log2=climit_log2, cbits=cbits, wlog=wlog)
+
+    return run
+
+
+def _decode_group(parsed, k, inc, climit_log2, cbits, wlog, steps,
+                  symbols_fn):
+    from cpprcoder_tpu.utils import profiling
+
+    l4 = bucket(-(-max(int(p[6].max()) for p in parsed) // 4) + 1)
+    p_cap = bucket(max(max(len(p[7]) for p in parsed), 1))
+    payloads = np.zeros((len(parsed), p_cap), np.uint8)
+    for i, p in enumerate(parsed):
+        payloads[i, : len(p[7])] = p[7]
+    sizes = np.stack([p[6] for p in parsed])
+    n_vec = np.asarray([p[0] for p in parsed], np.int32)
+    with profiling.phase("dec.scan", int(n_vec.sum())):
+        syms = _symbols_fn(symbols_fn, steps, k, inc, climit_log2, cbits,
+                           wlog, l4, p_cap)(payloads, sizes, n_vec)
+        arr = np.asarray(jax.device_get(syms))
+    out = []
+    for i, n in enumerate(n_vec.tolist()):
+        stride = -(-n // k)
+        out.append(arr[i, :stride].T.reshape(-1)[:n].tobytes())
+    return out
+
+
+def decode_many(blobs, symbols_fn=xla_symbols) -> list[bytes]:
+    parsed = [_parse(b) for b in blobs]
+    out: list[bytes | None] = [None] * len(blobs)
+    groups: dict[tuple, list[int]] = {}
+    for i, p in enumerate(parsed):
+        n, k, inc, cl, cbits, wlog = p[:6]
+        if n == 0:
+            out[i] = b""
+            continue
+        groups.setdefault((k, inc, cl, cbits, wlog, bucket(-(-n // k))),
+                          []).append(i)
+    for key, idx in groups.items():
+        for launch in _launches(idx, key[-1], key[0]):
+            for i, b in zip(launch, _decode_group([parsed[i] for i in launch],
+                                                  *key, symbols_fn)):
+                out[i] = b
+    return out

@@ -25,6 +25,14 @@ def _case(n, seed=0, lo=0, hi=256):
     return rng.integers(lo, hi, n, dtype=np.uint8).tobytes()
 
 
+def _jax_encode(data, **params):
+    return rcx_ops.encode_many([data], [params])[0]
+
+
+def _jax_decode(blob):
+    return rcx_ops.decode_many([blob])[0]
+
+
 def _textish(n, seed=0):
     rng = np.random.default_rng(seed)
     a = rng.integers(97, 123, n // 2, dtype=np.uint8)
@@ -66,9 +74,9 @@ def test_params_policy():
 def test_jax_oracle_identity(n, seed):
     data = _textish(n, seed)
     bo = rcx_ref.rcx_encode(data)
-    bj = rcx_ops.rcx_encode_jax(data)
+    bj = _jax_encode(data)
     assert bo == bj
-    assert rcx_ops.rcx_decode_jax(bo) == data
+    assert _jax_decode(bo) == data
     assert rcx_ref.rcx_decode(bj) == data
 
 
@@ -77,25 +85,25 @@ def test_jax_oracle_identity_odd_sizes():
     for n in (10_241, 65_537):
         data = _case(n, seed=n, lo=0, hi=7)
         bo = rcx_ref.rcx_encode(data)
-        bj = rcx_ops.rcx_encode_jax(data)
+        bj = _jax_encode(data)
         assert bo == bj
-        assert rcx_ops.rcx_decode_jax(bo) == data
+        assert _jax_decode(bo) == data
 
 
 @pytest.mark.parametrize("cbits", [0, 2, 8])
 def test_cbits_variants(cbits):
     data = _textish(3000, seed=cbits)
     bo = rcx_ref.rcx_encode(data, cbits=cbits)
-    bj = rcx_ops.rcx_encode_jax(data, cbits=cbits)
+    bj = _jax_encode(data, cbits=cbits)
     assert bo == bj
-    assert rcx_ops.rcx_decode_jax(bo) == data
+    assert _jax_decode(bo) == data
 
 
 def test_corpus_identity():
     data = corpus_file("grammar.lsp")
     bo = rcx_ref.rcx_encode(data)
-    assert rcx_ops.rcx_encode_jax(data) == bo
-    assert rcx_ops.rcx_decode_jax(bo) == data
+    assert _jax_encode(data) == bo
+    assert _jax_decode(bo) == data
 
 
 # ------------------------------------------------------------ capability
@@ -108,7 +116,7 @@ def test_ratio_beats_reference_adaptive():
            "xargs.1": 0.648924}
     for name, r in ref.items():
         data = corpus_file(name)
-        blob = rcx_ops.rcx_encode_jax(data)
+        blob = _jax_encode(data)
         assert len(blob) / len(data) < r, name
 
 
@@ -127,9 +135,9 @@ def test_wlog_sweep_identity_all_backends():
     data = _textish(3000, seed=3)
     for wlog in (0, 1, 2, 3):
         ref = rcx_ref.rcx_encode(data, wlog=wlog)
-        jx = rcx_ops.rcx_encode_jax(data, wlog=wlog)
+        jx = _jax_encode(data, wlog=wlog)
         assert jx == ref, wlog
-        assert rcx_ops.rcx_decode_jax(ref) == data
+        assert _jax_decode(ref) == data
         assert rcx_ref.rcx_decode(ref) == data
 
 

@@ -1,11 +1,12 @@
 """The CT-RCX GPU route on the CPU: everything around the CUDA kernels.
 
-The kernels themselves run only on a GPU (chip_smoke.CARD_CHECKS). Here the
-host side of ops/rcx_cuda.py is fed the XLA twins of the kernels
-(xla_events / xla_symbols, the same signatures), so lane layout, padding,
-grouping, header, size table and payload assembly are checked against the
-host oracle; plus the launch-shape and shared-memory arithmetic and the
-route rule of codecs/base.py."""
+The kernels themselves run only on a GPU (chip_smoke.CARD_CHECKS). Both
+device routes frame containers in one place (rcx_ops.encode_many /
+decode_many), fed here the XLA twins of the kernels (xla_events /
+xla_symbols, the kernels' signatures), so lane layout, padding, grouping,
+launch batching, header, size table and payload assembly are checked
+against the host oracle; plus the kernels' shape rule, the launch-shape and
+shared-memory arithmetic and the route rule of codecs/base.py."""
 
 import numpy as np
 import pytest
@@ -14,7 +15,8 @@ from conftest import corpus_file
 
 from cpprcoder_tpu import compress, decompress, get_codec
 from cpprcoder_tpu.codecs import base
-from cpprcoder_tpu.ops import rcx_cuda
+from cpprcoder_tpu.codecs import rcx as rcx_codec
+from cpprcoder_tpu.ops import rcx_cuda, rcx_ops
 from cpprcoder_tpu.reference import rcx_ref
 
 
@@ -25,16 +27,12 @@ def _textish(n, seed=0):
     return np.concatenate([a, b]).tobytes()
 
 
-_ENCODE_MANY = rcx_cuda.encode_many
-_DECODE_MANY = rcx_cuda.decode_many
-
-
 def _encode(chunks, params=None):
-    return _ENCODE_MANY(chunks, params, events_fn=rcx_cuda.xla_events)
+    return rcx_ops.encode_many(chunks, params, events_fn=rcx_ops.xla_events)
 
 
 def _decode(blobs):
-    return _DECODE_MANY(blobs, symbols_fn=rcx_cuda.xla_symbols)
+    return rcx_ops.decode_many(blobs, symbols_fn=rcx_ops.xla_symbols)
 
 
 # ------------------------------------------------- wrapper vs the oracle
@@ -72,11 +70,15 @@ def test_multi_container_grid_matches_solo():
     assert _decode(batch) == chunks
 
 
-def test_wrapper_rejects_shapes_it_does_not_take():
+def test_wrapper_rejects_shapes_it_does_not_take(monkeypatch):
+    # the shape rule raises before the library is asked for
+    monkeypatch.setattr(rcx_cuda, "library", lambda: pytest.fail("built"))
     with pytest.raises(ValueError, match="XLA twin"):
-        _encode([_textish(500)], [{"cbits": 7}])
+        rcx_ops.encode_many([_textish(500)], [{"cbits": 7}],
+                            events_fn=rcx_cuda.kernel_events)
     with pytest.raises(ValueError, match="XLA twin"):
-        _decode([rcx_ref.rcx_encode(_textish(500), cbits=7)])
+        rcx_ops.decode_many([rcx_ref.rcx_encode(_textish(500), cbits=7)],
+                            symbols_fn=rcx_cuda.kernel_symbols)
 
 
 # ------------------------------------------------ launch-shape arithmetic
@@ -117,8 +119,8 @@ def spy(monkeypatch):
         calls.append("kernel")
         return _decode(blobs)
 
-    monkeypatch.setattr(rcx_cuda, "encode_many", enc)
-    monkeypatch.setattr(rcx_cuda, "decode_many", dec)
+    monkeypatch.setattr(rcx_codec, "_kernel_encode", enc)
+    monkeypatch.setattr(rcx_codec, "_kernel_decode", dec)
     monkeypatch.setattr(base, "platform", lambda: "gpu")
     return calls
 
@@ -144,8 +146,8 @@ def test_route_on_cpu_is_the_xla_twin(monkeypatch):
     def boom(*a, **k):
         raise AssertionError("kernel route taken on the CPU")
 
-    monkeypatch.setattr(rcx_cuda, "encode_many", boom)
-    monkeypatch.setattr(rcx_cuda, "decode_many", boom)
+    monkeypatch.setattr(rcx_codec, "_kernel_encode", boom)
+    monkeypatch.setattr(rcx_codec, "_kernel_decode", boom)
     assert base.platform() == "cpu"
     data = _textish(1200, 8)
     blob = compress(data, codec="rcx")
@@ -170,15 +172,42 @@ def test_unknown_backend_raises():
         compress(b"abc", codec="rans", backend="pallas")
 
 
-def test_stream_batches_superblocks(spy):
+def test_stream_batches_superblocks(spy, monkeypatch):
+    """CT-SB hands the whole stream to one encode_many; rcx_ops splits
+    each parameter group into launches of at most LAUNCH_BYTES of padded
+    input, so device memory stays bounded however long the stream is."""
     from cpprcoder_tpu.codecs.stream import stream_decode, stream_encode
+    from cpprcoder_tpu.models.cxmodel import rcx_params
+    from cpprcoder_tpu.utils.shapes import bucket
 
-    data = _textish(9000, 11)
+    sb = 4096
+    k = rcx_params(sb)[0]
+    grid = bucket(-(-sb // k)) * k           # one superblock's padded grid
+    monkeypatch.setattr(rcx_ops, "LAUNCH_BYTES", 2 * grid)
+    launches = []
+    for name in ("_encode_group", "_decode_group"):
+        orig = getattr(rcx_ops, name)
+        monkeypatch.setattr(rcx_ops, name, lambda items, *a, _o=orig, _n=name:
+                            launches.append((_n, len(items))) or _o(items, *a))
+    data = _textish(5 * sb + 808, 11)        # five full superblocks + a tail
     blob = stream_encode(data, codec="rcx", sb_log2=12)
-    assert spy == ["kernel"]             # three superblocks, one batch
+    assert spy == ["kernel"]                 # one call for the whole stream
     assert stream_decode(blob) == data
     assert spy == ["kernel", "kernel"]
+    for name in ("_encode_group", "_decode_group"):
+        assert sorted(n for m, n in launches if m == name) == [1, 1, 2, 2]
     codec = get_codec("rcx")
     assert blob.endswith(b"".join(
-        codec.encode(data[i:i + 4096], backend="ref")
-        for i in range(0, len(data), 4096)))
+        codec.encode(data[i:i + sb], backend="ref")
+        for i in range(0, len(data), sb)))
+
+
+@pytest.mark.parametrize("steps,k,per", [
+    (512, 2048, 128), (1024, 2048, 64), (16, 32, 262_144), (1 << 20, 256, 1)])
+def test_launch_budget(steps, k, per):
+    idx = list(range(300))
+    launches = rcx_ops._launches(idx, steps, k)
+    assert [i for launch in launches for i in launch] == idx
+    assert max(map(len, launches)) == min(per, 300)
+    assert all(len(launch) * steps * k <= max(rcx_ops.LAUNCH_BYTES, steps * k)
+               for launch in launches)
